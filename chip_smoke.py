@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # every phase (needs one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5, 7 and 8 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
 
 1. The card: ``nvidia-smi`` name and power limit, torch's device name.
-2. The build: compile the K1 kernel from ``hpgq_torch/kernels/csrc``.
+2. The build: compile the K1 and K2 kernels from
+   ``hpgq_torch/kernels/csrc`` (one nvcc per source, in parallel).
 3. K1 against its plain PyTorch twin on the same CUDA tensors: the
-   131072 x 128 main-path batch, ragged batches, and five filter settings.
-   Integer fields must match exactly; ``acc_quality`` to 1e-4 relative
-   (per-block f32 sums are added in another order than torch's).
+   131072 x 128 main-path batch (also with the k-mer ride-along), ragged
+   batches, and five filter settings.  Integer fields must match exactly;
+   ``acc_quality`` to 1e-4 relative (per-block f32 sums are added in
+   another order than torch's).
 4. End to end: ``hpgq_torch.stats`` with the bench's inline filter over a
    generated 1,000,000 x 100 bp RTA3-binned corpus on ``cuda``, held
    against ``hpgq_torch.oracle``, a plain numpy reference computed from
@@ -19,9 +21,23 @@ Phases, each printing its own lines:
    ``acc_quality`` to 1e-3), with K1 launches and the 2u wire tier
    required; then reads/s of three warm passes.
 5. The other wire tiers (2c, 2q, 6-bit, 7-bit, plain) on 200k reads of
-   60-150 bp, each held against the reference.
+   60-150 bp, each held against the reference, and one ``kmers=True`` run
+   (K1 + the k-mer ride-along, k-mer tables exact).
 6. Only when asked for: ``hpgq_torch.breakdown`` over the phase-4 corpus
    (end-to-end arms in turns, each stage alone, the device's busy share).
+7. K2 against its plain twin on CUDA tensors, from lcap 4224 to 66048,
+   ragged, empty and all-invalid batches, five filter settings (and a
+   minimum quality alone at 24576, where the MAX sentinel times the length
+   passes int32), k-mers off and on; every integer field and the pass mask
+   exact, ``acc_quality`` to 1e-4.  Also at phase 8's batch shape
+   (512 x 89472, mixed lengths, padding rows) and on the 512 x 32768 timed
+   batch, with the NanoFilt-style filter too.  Then K2 against the twin on
+   the timed batch: CUDA events in turns, and K2's device time.
+8. Long reads end to end: about 10,000 reads of 2-30 kb plus a few dozen
+   of 66-90 kb (lcap past 65536), unbinned qualities; ``hpgq_torch.stats``
+   with ``kmers=True`` and with a NanoFilt-style filter, each held against
+   the reference (k-mer tables too), with K2 launches required; then
+   reads/s and bases/s of three warm passes.
 
 Imports nothing of jax: the run blocks ``import jax``, so a path that
 needed it would fail here.  Any failure exits non-zero before the result
@@ -45,6 +61,7 @@ TILE = 64  # rows per K1 block, for the ragged shapes
 INT_KEYS = ("num_reads", "acc_length", "min_length", "max_length",
             "base_totals", "length_hist", "quality_hist", "gc_hist",
             "cov_per_nt", "qual_per_nt", "base_per_nt", "_passed_mask")
+OPTIONAL_KEYS = ("_num_passed", "_num_failed", "kmer_counts", "kmer_per_nt")
 
 
 class SmokeFailure(Exception):
@@ -105,13 +122,13 @@ def compare_partials(k, p, label):
     equal, so it is the max over all fields); raises on a mismatch."""
     import torch
 
-    keys = INT_KEYS + tuple(x for x in ("_num_passed", "_num_failed")
-                            if x in p)
-    for key in keys:
+    check(set(k) == set(p), "%s: kernel keys %s, plain twin keys %s"
+          % (label, sorted(k), sorted(p)))
+    for key in INT_KEYS + tuple(x for x in OPTIONAL_KEYS if x in p):
         a, b = k[key].cpu(), p[key].cpu()
         if not torch.equal(a.to(torch.int64), b.to(torch.int64)):
-            raise SmokeFailure("%s: K1 and the plain twin differ in %s"
-                               % (label, key))
+            raise SmokeFailure("%s: the kernel and the plain twin differ in "
+                               "%s" % (label, key))
     aq_k = float(k["acc_quality"])
     aq_p = float(p["acc_quality"])
     err = abs(aq_k - aq_p)
@@ -140,7 +157,10 @@ def phase_kernel(dev):
     import torch
 
     from hpgq_torch.api import filter_criteria
-    from hpgq_torch.kernels.stats_cuda import batch_partials_cuda
+    from hpgq_torch.kernels.stats_cuda import (
+        batch_partials_cuda,
+        make_batch_partials,
+    )
     from hpgq_torch.kernels.stats_torch import fused_partials
 
     crits = {name: filter_criteria(**kw) for name, kw in FILTERS.items()}
@@ -170,6 +190,14 @@ def phase_kernel(dev):
                                  make_batch(131072, 128, seed=100,
                                             lens=np.full(131072, 100)))
     bench = crits["bench"]
+    k = make_batch_partials(128, 33, bench, kmers_on=True)(codes, quals,
+                                                            lens, valid)
+    p = fused_partials(codes, quals, lens, valid, 128, 33, bench,
+                       kmers_on=True)
+    torch.cuda.synchronize()
+    max_err = max(max_err, compare_partials(k, p, "main + k-mers"))
+    say("k1", "131072x128, bench filter, k-mers on: K1 + ride-along == plain "
+        "twin (%d k-mers counted)" % int(k["kmer_counts"].sum()))
     ms_plain = ms = None
     for turn in ("plain", "kernel", "kernel", "plain"):  # in turns
         if turn == "kernel":
@@ -192,7 +220,8 @@ def phase_kernel(dev):
 
 
 def kernel_device_ms(fn, iters=20, name="stats_k1_kernel"):
-    """Device time per launch of the kernel called ``name`` (profiler)."""
+    """Device time per call of ``fn`` spent in the kernels whose names
+    contain ``name`` (profiler; K2 is two launches per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -203,12 +232,10 @@ def kernel_device_ms(fn, iters=20, name="stats_k1_kernel"):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if ev.key.startswith(name) and ev.count:
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            return us / ev.count / 1e3 if us else None
-    return None
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages() if name in ev.key and ev.count)
+    return us / iters / 1e3 if us else None
 
 
 # ---------------------------------------------------------------- phases 4-5
@@ -290,14 +317,16 @@ def phase_end_to_end(tmp, smi):
 def phase_tiers(tmp):
     from gen import make_fastq
     from hpgq_torch.breakdown import environ
-    from hpgq_torch.kernels import step
+    from hpgq_torch.kernels import stats_cuda, step
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     binned = os.path.join(tmp, "var_binned.fq")
     wide = os.path.join(tmp, "var_unbinned.fq")
+    records_binned = make_fastq(binned, 200_000, min_len=60, max_len=150,
+                                n_prob=0.01, seed=21,
+                                qual_bins=(2, 12, 23, 37))
     want = {
-        binned: make_fastq(binned, 200_000, min_len=60, max_len=150,
-                           n_prob=0.01, seed=21, qual_bins=(2, 12, 23, 37)),
+        binned: records_binned,
         wide: make_fastq(wide, 200_000, min_len=60, max_len=150, n_prob=0.01,
                          seed=22),
     }
@@ -320,6 +349,16 @@ def phase_tiers(tmp):
         say("tiers", "%s: %s, port == reference (%d passed, %d failed)"
             % (tier, tiers, got.num_passed, got.num_failed))
 
+    stats_cuda.LAUNCHES = 0
+    kw = dict(BENCH_FILTER, kmers=True)
+    got = run_port(binned, tempfile.mkdtemp(dir=tmp), kw)
+    check(stats_cuda.LAUNCHES > 0, "the k-mer run launched K1 no time")
+    assert_counters_equal(got, reference_stats(records_binned, **kw),
+                          "k-mers")
+    say("tiers", "k-mers (2c tier, bench filter): K1 launches %d, port == "
+        "reference, k-mer tables too (%d k-mers counted)"
+        % (stats_cuda.LAUNCHES, int(got.kmer_counts.sum())))
+
 
 def phase_breakdown(tmp, smi):
     """Opt-in: hpgq_torch.breakdown over the bench corpus."""
@@ -330,14 +369,237 @@ def phase_breakdown(tmp, smi):
     breakdown.main([path])
 
 
+# ---------------------------------------------------------------- phase 7
+
+K2_TIME_SHAPE = (512, 32768)
+
+
+def compare_k2(t, lcap, settings, label):
+    """K2 (through ``make_batch_partials``) against the plain twin on the
+    tensors ``t`` under each filter setting, k-mers off and on; returns
+    (max abs err, the last kernel partials)."""
+    import torch
+
+    from hpgq_torch.kernels.stats_cuda import make_batch_partials
+    from hpgq_torch.kernels.stats_torch import fused_partials
+
+    err = 0.0
+    for name, crit in settings.items():
+        for kmers in (False, True):
+            k = make_batch_partials(lcap, 33, crit, kmers)(*t)
+            p = fused_partials(*t, lcap, 33, crit, kmers)
+            torch.cuda.synchronize()
+            err = max(err, compare_partials(
+                k, p, "%s / %s / kmers %s" % (label, name, kmers)))
+    say("k2", "%s: K2 == plain twin for %d filter settings x k-mers off/on"
+        % (label, len(settings)))
+    return err, k
+
+
+def phase_k2(dev):
+    """K2 against its plain twin; returns (max abs err, ms, plain ms)."""
+    import torch
+
+    from hpgq_torch.api import filter_criteria
+    from hpgq_torch.kernels import stats_cuda
+    from hpgq_torch.kernels.stats_cuda import batch_partials_cuda_long
+    from hpgq_torch.kernels.stats_torch import fused_partials
+
+    crits = {name: filter_criteria(**kw) for name, kw in FILTERS.items()}
+    sentinel = {"min quality only": filter_criteria(
+        read_quality_range=(5, None))}
+    nanofilt = {"nanofilt": filter_criteria(**LONG_FILTER)}
+    # phase 8's batches: a 16 MB block of ~490 reads of 2-30 kb (one of
+    # 66-90 kb among them) padded to 512 rows, in lcap 89,472
+    rng = np.random.default_rng(798)
+    long_lens = rng.integers(2_000, 30_001, size=512)
+    long_lens[[100, 300]] = (70_001, 89_415)
+    long_lens[490:] = 0
+    cases = [
+        # (label, B, L, lcap, lens, valid_frac, extra settings)
+        ("256x4608 lcap 4608", 256, 4608, 4608, None, 0.9, {}),
+        ("100x8192 lcap 8192", 100, 8192, 8192, None, 0.9, {}),
+        ("64x4608 lcap 8192", 64, 4608, 8192, None, 0.9, {}),
+        ("32x24576 full length", 32, 24576, 24576, np.full(32, 24576), 0.9,
+         sentinel),
+        ("8x66048 lcap 66048", 8, 66048, 66048, None, 1.0, {}),
+        ("ragged 300x4101 lcap 4224", 300, 4101, 4224, None, 0.8, {}),
+        ("all rows invalid 300x8192", 300, 8192, 8192, None, 0.0, {}),
+        ("empty 0x8192", 0, 8192, 8192, None, 1.0, {}),
+        ("long-read batch 512x89472", 512, 89472, 89472, long_lens, 1.0,
+         nanofilt),
+    ]
+    max_err = 0.0
+    before = stats_cuda.LAUNCHES_K2
+    for ci, (label, B, L, lcap, lens, vf, extra) in enumerate(cases):
+        arrs = make_batch(B, L, seed=700 + ci, lens=lens, valid_frac=vf,
+                          binned=False)
+        if lens is None:
+            arrs[2][:5] = 0  # length-0 rows
+        if extra is nanofilt:
+            arrs[3][490:] = False  # the block's padding rows
+        t = [torch.from_numpy(a).to(dev) for a in arrs]
+        err, k = compare_k2(t, lcap, dict(crits, **extra), label)
+        max_err = max(max_err, err)
+        if extra is sentinel:  # only a minimum quality: every valid read
+            n_pass = int(k["_num_passed"])  # passes
+            check(n_pass == int(arrs[3].sum()),
+                  "%s: %d of %d valid reads passed a minimum quality of 5"
+                  % (label, n_pass, int(arrs[3].sum())))
+
+    B, L = K2_TIME_SHAPE
+    t = [torch.from_numpy(a).to(dev) for a in
+         make_batch(B, L, seed=799, binned=False)]
+    err, _ = compare_k2(t, L, {"none": crits["none"], "bench": crits["bench"],
+                               **nanofilt}, "timed batch %dx%d" % (B, L))
+    max_err = max(max_err, err)
+    check(stats_cuda.LAUNCHES_K2 - before == 2 * (3 + sum(
+        len(crits) + len(c[6]) for c in cases if c[1])),
+        "K2 launch count %d" % (stats_cuda.LAUNCHES_K2 - before))
+    codes, quals, lens, valid = t
+    ms_plain = ms = None
+    for turn in ("plain", "kernel", "kernel", "plain"):  # in turns
+        if turn == "kernel":
+            t = cuda_time_ms(lambda: batch_partials_cuda_long(
+                codes, quals, lens, valid, L, 33))
+            ms = t if ms is None else min(ms, t)
+        else:
+            t = cuda_time_ms(lambda: fused_partials(
+                codes, quals, lens, valid, L, 33))
+            ms_plain = t if ms_plain is None else min(ms_plain, t)
+    # bytes K2 reads: codes + quals up to each read's length, once per
+    # read (launch A) and once more per passing read (launch B; no filter)
+    nbytes = 2 * int(lens.sum()) + 2 * int(lens[valid].sum())
+    say("k2", "%dx%d, no filter: K2 wrapper %.4f ms per call, plain twin "
+        "%.4f ms (CUDA events, best of 2 turns of 20 calls)"
+        % (B, L, ms, ms_plain))
+    dev_ms = kernel_device_ms(lambda: batch_partials_cuda_long(
+        codes, quals, lens, valid, L, 33), name="stats_k2_")
+    say("k2", "K2 kernels alone: %s ms of device time per call "
+        "(torch.profiler, 20 calls; both launches)%s" % (
+            "not measured" if dev_ms is None else "%.4f" % dev_ms,
+            "" if dev_ms is None else "; %d bytes read, %.1f GB/s"
+            % (nbytes, nbytes / dev_ms / 1e6)))
+    return max_err, ms, ms_plain
+
+
+# ---------------------------------------------------------------- phase 8
+
+LONG_FILTER = dict(read_length_range=(5000, 100000),
+                   read_quality_range=(10, 60), max_N=20)
+
+
+def long_read_corpus(path, n=10_000, n_huge=36, lengths=(2_000, 30_000),
+                     huge=(66_000, 90_000), seed=41):
+    """Write ``n`` reads of ``lengths`` plus ``n_huge`` of ``huge`` bp
+    (unbinned qualities 2-41, N rate 0.001), the long ones spread through
+    the file; returns the records."""
+    from gen import make_records, write_fastq
+
+    records = make_records(n, min_len=lengths[0], max_len=lengths[1],
+                           n_prob=0.001, seed=seed)
+    big = make_records(n_huge, min_len=huge[0], max_len=huge[1],
+                       n_prob=0.001, seed=seed + 1)
+    step = max(1, n // max(n_huge, 1))
+    for i, rec in enumerate(big):
+        records.insert(min(len(records), i * (step + 1) + step // 2), rec)
+    write_fastq(path, records)
+    return records
+
+
+def long_read_runs(path, records, outdir, device):
+    """``hpgq_torch.stats`` on ``device`` with ``kmers=True`` and with
+    :data:`LONG_FILTER`, each held against the reference; returns
+    ``{run: (counters, K1 launches, K2 launches, wire tiers, seconds)}``."""
+    import torch
+
+    import hpgq_torch
+    from hpgq_torch.kernels import stats_cuda, step
+    from hpgq_torch.oracle import assert_counters_equal, reference_stats
+
+    out = {}
+    for run, kw in (("kmers", dict(kmers=True)), ("filter", LONG_FILTER)):
+        stats_cuda.LAUNCHES = stats_cuda.LAUNCHES_K2 = 0
+        step.WIRE_BATCHES.clear()
+        t0 = time.perf_counter()
+        got = hpgq_torch.stats(path, outdir=outdir, device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[run] = (got, stats_cuda.LAUNCHES, stats_cuda.LAUNCHES_K2,
+                    dict(step.WIRE_BATCHES), secs)
+        assert_counters_equal(got, reference_stats(records, **kw),
+                              "long reads, " + run)
+        if run == "filter":
+            check(got.num_passed > 0 and got.num_failed > 0,
+                  "the long-read filter passed %d and failed %d reads"
+                  % (got.num_passed, got.num_failed))
+    return out
+
+
+def phase_long_reads(tmp, smi):
+    import torch
+
+    path = os.path.join(tmp, "long_reads.fq")
+    t0 = time.perf_counter()
+    records = long_read_corpus(path)
+    nbases = sum(len(r[1]) for r in records)
+    say("long", "%d reads, %d bases (longest %d), %d bytes, written in "
+        "%.1f s" % (len(records), nbases, max(len(r[1]) for r in records),
+                    os.path.getsize(path), time.perf_counter() - t0))
+    out = os.path.join(tmp, "long_out")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    runs = long_read_runs(path, records, out, "cuda")
+    for run, (got, k1, k2, tiers, secs) in runs.items():
+        check(k2 > 0, "the long-read %s run launched K2 no time" % run)
+        say("long", "%s: cold pass %.3f s, K2 launches %d, K1 launches %d, "
+            "wire tiers %s; port == reference (%d reads counted, %d passed, "
+            "%d failed%s)" % (
+                run, secs, k2, k1, tiers, got.num_reads, got.num_passed,
+                got.num_failed, ", %d k-mers" % int(got.kmer_counts.sum())
+                if run == "kmers" else ""))
+    say("long", "both runs and their references took %.1f s"
+        % (time.perf_counter() - t0))
+    launches = runs["filter"][2]
+
+    from hpgq_torch.breakdown import _device_ms, _fmt_busy
+
+    times = []
+    for _ in range(3):  # warm passes of the filtered run
+        t0 = time.perf_counter()
+        run_port(path, tempfile.mkdtemp(dir=tmp), LONG_FILTER)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    n = len(records)
+    say("long", "warm filtered passes: %d reads, %d bases in %s s; best "
+        "%.0f reads/s (%.4g bases/s), median %.0f reads/s (%.4g bases/s), "
+        "on %s" % (n, nbases, ", ".join("%.3f" % t for t in times),
+                   n / min(times), nbases / min(times), n / sorted(times)[1],
+                   nbases / sorted(times)[1], smi))
+    for label, kw in (("no filter, no report", dict(report=False)),
+                      ("kmers=True, no report", dict(kmers=True,
+                                                     report=False)),
+                      ("kmers=True", dict(kmers=True))):
+        t0 = time.perf_counter()
+        run_port(path, tempfile.mkdtemp(dir=tmp), kw)
+        torch.cuda.synchronize()
+        say("long", "one warm pass, %s: %.3f s"
+            % (label, time.perf_counter() - t0))
+    busy = _device_ms(lambda: run_port(path, tempfile.mkdtemp(dir=tmp),
+                                       LONG_FILTER), torch.device("cuda", 0))
+    say("long", "one profiled filtered pass: device %s" % _fmt_busy(busy))
+    return launches
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
-                    help="comma-separated phases to run (default 1-5; 6, "
-                         "the stage breakdown, runs only when asked for; "
-                         "the card and the build always run)")
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8",
+                    help="comma-separated phases to run (default 1-5, 7 "
+                         "and 8; 6, the stage breakdown, runs only when "
+                         "asked for; the card and the build always run)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     for name in ("jax", "jaxlib"):  # any import of jax now fails the run
@@ -367,28 +629,39 @@ def main(argv=None):
            torch.__version__, torch.version.cuda))
     t0 = time.perf_counter()
     build.load(verbose=True)
-    say("build", "K1 built and loaded in %.1f s" % (time.perf_counter() - t0))
+    say("build", "K1 and K2 built and loaded in %.1f s"
+        % (time.perf_counter() - t0))
 
-    kernel = {"name": "K1 stats_k1_kernel", "route": "cuda",
-              "source": "hpgq_torch/kernels/csrc/stats_k1.cu",
-              "replaces": "hpgq/kernels/stats_pallas.py:60",
-              "launches": None, "max_abs_err": None, "ms": None,
-              "plain_ms": None}
+    def entry(name, source, replaces):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": None, "max_abs_err": None,
+                "ms": None, "plain_ms": None}
+
+    k1 = entry("K1 stats_k1_kernel", "hpgq_torch/kernels/csrc/stats_k1.cu",
+               "hpgq/kernels/stats_pallas.py:60")
+    k2 = entry("K2 stats_k2_reads + stats_k2_positions",
+               "hpgq_torch/kernels/csrc/stats_k2.cu",
+               "hpgq/kernels/stats_pallas.py:281")
     tmp = tempfile.mkdtemp(prefix="hpgq_torch_smoke_")
     try:
         if 3 in phases:
             err, ms, plain_ms = phase_kernel(dev)
-            kernel.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            k1.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        if 7 in phases:
+            err, ms, plain_ms = phase_k2(dev)
+            k2.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
         if 4 in phases:
-            kernel["launches"] = phase_end_to_end(tmp, smi)
+            k1["launches"] = phase_end_to_end(tmp, smi)
         if 5 in phases:
             phase_tiers(tmp)
+        if 8 in phases:
+            k2["launches"] = phase_long_reads(tmp, smi)
         if 6 in phases:
             phase_breakdown(tmp, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ kernel written by hand for Hopper (``hpgq_torch/kernels/csrc``).  Host
 layers without a jax import (reader, native packer, options, counters,
 report, checkpoint) are shared with ``hpgq``.
 
-Ported so far: single-end ``stats``, with and without the inline filter
-(``python -m hpgq_torch stats ...`` or :func:`hpgq_torch.stats`).  The
+Ported so far: single-end ``stats`` for reads of any length, with and
+without the inline filter and with ``--kmers`` (``python -m hpgq_torch
+stats ...`` or :func:`hpgq_torch.stats`).  The
 device is explicit: ``"cuda"`` by default, ``"cpu"`` only when asked for.
 """
 

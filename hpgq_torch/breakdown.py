@@ -140,7 +140,8 @@ def stages(path, dev, out=sys.stdout):
         sess.feed_packed(*args)
     _sync(dev)
     dt = time.perf_counter() - t0
-    print("device steps (decode, pad, K1, merge), %d batches on the device: "
+    print("device steps (decode, pad, K1/K2, merge), %d batches on the "
+          "device: "
           "%.3f ms = %.3f ms/batch wall" % (len(on_dev), dt * 1e3,
                                            dt * 1e3 / len(on_dev)),
           file=out, flush=True)
@@ -159,8 +160,9 @@ def _arrays(x):
 
 
 def _device_ms(fn, dev):
-    """(total device ms of kernels and copies, K1's ms, wall ms) of one
-    profiled call of ``fn``, or None where the profiler saw no device."""
+    """(total device ms of kernels and copies, the stats kernels' ms (K1
+    and K2), wall ms) of one profiled call of ``fn``, or None where the
+    profiler saw no device."""
     from torch.profiler import ProfilerActivity, profile
 
     _sync(dev)
@@ -177,7 +179,7 @@ def _device_ms(fn, dev):
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         total += us
-        if ev.key.startswith("stats_k1_kernel"):
+        if "stats_k1_kernel" in ev.key or "stats_k2_" in ev.key:
             k1 += us
     if not total:
         return None
@@ -188,7 +190,7 @@ def _fmt_busy(busy):
     if busy is None:
         return "not measured (the profiler saw no device time)"
     total, k1, wall = busy
-    return ("%.3f ms (K1 %.3f ms) in %.3f ms wall: busy share %.4f"
+    return ("%.3f ms (K1/K2 %.3f ms) in %.3f ms wall: busy share %.4f"
             % (total, k1, wall, total / wall))
 
 

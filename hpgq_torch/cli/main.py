@@ -73,7 +73,7 @@ def _stats(rest, exec_name: str) -> int:
     parser = argparse.ArgumentParser(prog="%s stats" % exec_name)
     _add_common(parser, with_encoding=True)
     parser.add_argument("--kmers", dest="kmers_on", action="store_true",
-                        help="Enable k-mers analysis (5-mer; not ported yet)")
+                        help="Enable k-mers analysis (5-mer)")
     parser.add_argument("--device", default="cuda",
                         help="Device to run on: cuda (default) or cpu")
     _add_legacy_filter_aliases(parser)

@@ -57,7 +57,8 @@ def to_numpy(acc: dict) -> dict:
 
 def fold_partials(c: StatsCounters, host: dict) -> None:
     """Fold a host copy of the partials into int64 counters (the jax-free
-    twin of ``hpgq.core.accumulator.fold_partials``, ``:160-190``)."""
+    twin of ``hpgq.core.accumulator.fold_partials``, ``:160-190``), the
+    k-mer fields included when the partials carry them."""
     c.ensure_length(len(np.asarray(host["cov_per_nt"])))
     c.num_reads += int(host["num_reads"])
     c.num_passed += int(host.get("num_passed", 0))
@@ -84,23 +85,29 @@ def fold_partials(c: StatsCounters, host: dict) -> None:
     c.acc_quality_per_nt[:lcap] += np.asarray(host["qual_per_nt"],
                                               dtype=np.int64)
     c.base_per_nt[:, :lcap] += np.asarray(host["base_per_nt"], dtype=np.int64)
+    if "kmer_counts" in host:
+        c.kmer_counts += np.asarray(host["kmer_counts"], dtype=np.int64)
+        c.kmer_counts_by_pos[:, :lcap] += np.asarray(host["kmer_per_nt"],
+                                                     dtype=np.int64)
 
 
 class DeviceAccumulator:
     """Streaming stats accumulator: device steps + a host fold at flush."""
 
     def __init__(self, lcap: int, phred: int, crit=None, device="cpu",
-                 wire="auto"):
+                 wire="auto", kmers_on: bool = False):
         self.lcap = lcap
         self.phred = phred
         self.device = torch.device(device)
         self._crit = crit
-        self.counters = StatsCounters(phred=phred)
+        self.kmers_on = kmers_on
+        self.counters = StatsCounters(phred=phred, kmers_on=kmers_on)
         self.counters.filter_on = crit is not None
         self.counters.ensure_length(lcap)
         self.wire = resolve_wire(wire, self.device)
-        self._step = make_stats_step(lcap, phred, crit, wire=self.wire)
-        self.acc = zero_partials(lcap, self.device)
+        self._step = make_stats_step(lcap, phred, crit, wire=self.wire,
+                                     kmers_on=kmers_on)
+        self.acc = zero_partials(lcap, kmers_on, self.device)
         self._dirty = False
 
     def update(self, codes, quals=None, lens=None, valid=None) -> None:
@@ -118,7 +125,8 @@ class DeviceAccumulator:
     def update_uniform(self, payload) -> None:
         """Feed one 2u batch: ``(buf, exc, pal, n_valid, Lu)``."""
         buf, exc, pal, n_valid, Lu = payload
-        step = make_stats_step2u(self.lcap, self.phred, self._crit, Lu)
+        step = make_stats_step2u(self.lcap, self.phred, self._crit, Lu,
+                                 self.kmers_on)
         self.acc = step(self.acc, buf, exc, pal, n_valid)
         self._dirty = True
 
@@ -127,7 +135,7 @@ class DeviceAccumulator:
         if not self._dirty:
             return
         fold_partials(self.counters, to_numpy(self.acc))
-        self.acc = zero_partials(self.lcap, self.device)
+        self.acc = zero_partials(self.lcap, self.kmers_on, self.device)
         self._dirty = False
 
     def finish(self) -> StatsCounters:

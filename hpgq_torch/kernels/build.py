@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-Route: ``nvcc`` compiles ``csrc/*.cu`` into a shared library with a plain
-C interface, which :mod:`ctypes` loads; no PyTorch headers are compiled,
-so a build takes seconds.  The library lands in ``_build/<hash>/`` next to
-this file (listed in ``.gitignore``), keyed by a hash of the sources and
-the command, so an edited kernel rebuilds and an unchanged one loads.
+Route: one ``nvcc`` per source in ``csrc/``, all started together, each
+compiling to an object; one more links the objects into a shared library
+with a plain C interface, which :mod:`ctypes` loads.  No PyTorch headers
+are compiled, so a build takes seconds.  The library lands in
+``_build/<hash>/`` next to this file (listed in ``.gitignore``), keyed by a
+hash of the sources and the commands, so an edited kernel rebuilds and an
+unchanged one loads.
 
 There is no fallback: a missing ``nvcc``, a failed compile or a failed
 load raises :class:`KernelBuildError`.
@@ -19,14 +21,16 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("stats_k1.cu",)
+SOURCES = ("stats_k1.cu", "stats_k2.cu")
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 # no --use_fast_math: the per-read mean must be the IEEE-rounded quotient
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib = None
@@ -37,7 +41,8 @@ class KernelBuildError(RuntimeError):
 
 
 class K1Crit(ctypes.Structure):
-    """Mirror of ``struct K1Crit`` in ``csrc/stats_k1.cu``."""
+    """Mirror of ``struct K1Crit`` in ``csrc/stats_k1.cu`` (and the identical
+    one in ``csrc/stats_k2.cu``)."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "on", "min_len", "max_len", "min_q", "max_q", "oq_on", "max_oq",
@@ -58,7 +63,7 @@ def nvcc_path() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -73,22 +78,31 @@ def build(verbose: bool = False) -> str:
         return lib_path
     nvcc = nvcc_path()
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
+    work = tempfile.mkdtemp(dir=out_dir)
+    objs = [os.path.join(work, src + ".o") for src in SOURCES]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise KernelBuildError("nvcc failed (%d):\n%s\n%s" % (
-                res.returncode, " ".join(cmd), res.stderr))
+        with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source
+            logs = list(pool.map(lambda src, obj: _nvcc(
+                [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj,
+                 os.path.join(CSRC, src)]), SOURCES, objs))
         if verbose:
-            print(res.stderr, end="")
-        os.replace(tmp, lib_path)  # atomic: concurrent builders agree
+            print("".join(logs), end="")
+        _nvcc([nvcc, *LINK_FLAGS, "-o", os.path.join(work, "lib.so"), *objs])
+        # atomic: concurrent builders agree
+        os.replace(os.path.join(work, "lib.so"), lib_path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
+
+
+def _nvcc(cmd) -> str:
+    """Run one nvcc command; returns its stderr (ptxas reports)."""
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise KernelBuildError("nvcc failed (%d):\n%s\n%s" % (
+            res.returncode, " ".join(cmd), res.stderr))
+    return res.stderr
 
 
 def load(verbose: bool = False):
@@ -103,9 +117,12 @@ def load(verbose: bool = False):
         except OSError as e:
             raise KernelBuildError("cannot load %s: %s" % (path, e)) from e
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hpgq_k1_launch.argtypes = [p, p, p, p, i, i, i, K1Crit,
-                                       p, p, p, p, p, p, p, p, p, p]
-        lib.hpgq_k1_launch.restype = i
+        # K1 and K2 take the same arguments (K2's per-block f32 partials
+        # are per row)
+        for fn in (lib.hpgq_k1_launch, lib.hpgq_k2_launch):
+            fn.argtypes = [p, p, p, p, i, i, i, K1Crit,
+                           p, p, p, p, p, p, p, p, p, p]
+            fn.restype = i
         lib.hpgq_k1_rows_per_block.restype = i
         lib.hpgq_k1_error_string.argtypes = [i]
         lib.hpgq_k1_error_string.restype = ctypes.c_char_p

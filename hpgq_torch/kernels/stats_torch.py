@@ -1,11 +1,13 @@
-"""Plain PyTorch stats partials: the reference version of the K1 kernel.
+"""Plain PyTorch stats partials: the reference version of the K1 and K2
+kernels.
 
 Torch twins of ``hpgq.kernels.stats_jnp``'s ``zero_partials``,
-``read_reductions``, ``_window_sums``, ``verdicts``, ``batch_partials``
-(no k-mers) and ``merge_into`` (``stats_jnp.py:46-185``, ``:310-391``).
-:func:`fused_partials` composes them into the contract of the hand-written
-kernel (``hpgq_torch.kernels.stats_cuda.batch_partials_cuda``): the CPU path
-runs it, and the GPU checks hold the kernel against it on the same tensors.
+``read_reductions``, ``_window_sums``, ``verdicts``, ``kmer_codes``,
+``kmer_hist2d``, ``batch_partials`` and ``merge_into``
+(``stats_jnp.py:46-185``, ``:243-391``).  :func:`fused_partials` composes
+them into the contract of the hand-written kernels
+(``hpgq_torch.kernels.stats_cuda``), k-mers included: the CPU path runs it,
+and the GPU checks hold the kernels against it on the same tensors.
 
 Differences from the jnp module, all deliberate:
 
@@ -15,24 +17,39 @@ Differences from the jnp module, all deliberate:
   and the in-place add saves one allocation per field and batch.
 * Every histogram key is integer math [D1]; the per-read mean is the f32
   quotient ``qsum.float() / lens.float()`` exactly as on the other engines.
+  Per-read sums and verdict products are int64, so no read length wraps.
+* The k-mer histogram is the scatter-add branch of ``kmer_hist2d``
+  (``stats_jnp.py:284-288``), an int64 ``index_add_`` over
+  ``kmer * lcap + pos`` with invalid windows routed to a spare row; the
+  TPU's one-hot branch is not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from hpgq.constants import BASE_C, BASE_G, BASE_N, MAX_VALUE, MIN_VALUE, PHRED33
+from hpgq.constants import (
+    BASE_C,
+    BASE_G,
+    BASE_N,
+    KMER_K,
+    MAX_VALUE,
+    MIN_VALUE,
+    NUM_KMERS,
+    PHRED33,
+)
 from hpgq.core.counters import GC_BINS, QUAL_BINS
 
 MIN_LENGTH_INIT = 100000  # reference init, src/stats_fastq.c:24
 
 
-def zero_partials(lcap: int, device="cpu") -> dict:
-    """Zeroed accumulator dict on ``device`` (int64 except ``acc_quality*``)."""
+def zero_partials(lcap: int, kmers_on: bool = False, device="cpu") -> dict:
+    """Zeroed accumulator dict on ``device`` (int64 except ``acc_quality*``),
+    with the ``kmer_counts`` / ``kmer_per_nt`` fields when ``kmers_on``."""
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int64, device=device)
 
-    return {
+    p = {
         "num_reads": z(),
         "num_passed": z(),
         "num_failed": z(),
@@ -52,6 +69,10 @@ def zero_partials(lcap: int, device="cpu") -> dict:
         "qual_per_nt": z(lcap),
         "base_per_nt": z(5, lcap),
     }
+    if kmers_on:
+        p["kmer_counts"] = z(NUM_KMERS)
+        p["kmer_per_nt"] = z(NUM_KMERS, lcap)
+    return p
 
 
 def _pos(B: int, L: int, device):
@@ -184,23 +205,71 @@ def batch_partials(codes, quals, lens, valid, lcap: int):
     return p
 
 
+def kmer_codes(codes, lens):
+    """[D5] per-window 5-mer codes (int64) and validity, ``[B, L-4]`` each."""
+    B, L = codes.shape
+    W = L - KMER_K + 1
+    kc = torch.zeros((B, W), dtype=torch.int64, device=codes.device)
+    ok = torch.ones((B, W), dtype=torch.bool, device=codes.device)
+    for i in range(KMER_K):
+        part = codes[:, i:i + W]
+        kc = kc * 4 + part.clamp(max=3).to(torch.int64)
+        ok &= part < 4
+    pos = torch.arange(W, dtype=torch.int64, device=codes.device)
+    ok &= (pos + KMER_K)[None, :] <= lens.to(torch.int64)[:, None]
+    return kc, ok
+
+
+def kmer_hist2d(kc, ok, lcap: int):
+    """int64 ``[NUM_KMERS, lcap]`` (kmer, position) histogram of the valid
+    windows: one ``index_add_`` over ``kmer * lcap + pos``, invalid windows
+    routed to a sacrificial row ``NUM_KMERS`` that is cut off.  Nothing
+    waits on the device (``bincount`` would read the maximum back)."""
+    B, W = kc.shape
+    assert W <= lcap, (W, lcap)
+    pos = torch.arange(W, dtype=torch.int64, device=kc.device)
+    key = torch.where(ok, kc, NUM_KMERS) * lcap + pos[None, :]
+    out = torch.zeros((NUM_KMERS + 1) * lcap, dtype=torch.int64,
+                      device=kc.device)
+    out.index_add_(0, key.reshape(-1),
+                   torch.ones((), dtype=torch.int64,
+                              device=kc.device).expand(B * W))
+    return out.view(NUM_KMERS + 1, lcap)[:NUM_KMERS]
+
+
+def kmer_partials(codes, lens, passed, lcap: int) -> dict:
+    """The k-mer ride-along of ``stats_pallas.make_batch_partials``
+    (``:594-608``) over the rows of ``passed``: ``kmer_per_nt`` and
+    ``kmer_counts``, all zero when the batch is narrower than a k-mer."""
+    if codes.shape[1] >= KMER_K:
+        kc, ok = kmer_codes(codes, lens)
+        k2d = kmer_hist2d(kc, ok & passed[:, None], lcap)
+    else:
+        k2d = torch.zeros((NUM_KMERS, lcap), dtype=torch.int64,
+                          device=codes.device)
+    return {"kmer_per_nt": k2d, "kmer_counts": k2d.sum(dim=1)}
+
+
 def fused_partials(codes, quals, lens, valid, lcap: int, phred: int,
-                   crit=None) -> dict:
-    """The K1 contract in plain torch: verdicts (when ``crit`` is set),
-    partials over the passing rows, and the ``_passed_mask`` /
+                   crit=None, kmers_on: bool = False) -> dict:
+    """The K1/K2 contract in plain torch: verdicts (when ``crit`` is set),
+    partials over the passing rows, the ``_passed_mask`` /
     ``_num_passed`` / ``_num_failed`` side outputs of
-    ``stats_pallas.batch_partials_pallas`` (``stats_pallas.py:253-273``)."""
+    ``stats_pallas.batch_partials_pallas`` (``stats_pallas.py:253-273``),
+    and with ``kmers_on`` the k-mer fields over the passing rows."""
     valid = valid.to(torch.bool)
     if crit is None:
         p = batch_partials(codes, quals, lens, valid, lcap)
         p["_passed_mask"] = valid
-        return p
-    ok = verdicts(codes, quals, lens, crit, phred)
-    passed = valid & ok
-    p = batch_partials(codes, quals, lens, passed, lcap)
-    p["_passed_mask"] = passed
-    p["_num_passed"] = passed.sum()
-    p["_num_failed"] = (valid & ~ok).sum()
+    else:
+        ok = verdicts(codes, quals, lens, crit, phred)
+        passed = valid & ok
+        p = batch_partials(codes, quals, lens, passed, lcap)
+        p["_passed_mask"] = passed
+        p["_num_passed"] = passed.sum()
+        p["_num_failed"] = (valid & ~ok).sum()
+    if kmers_on:
+        p.update(kmer_partials(codes, lens, p["_passed_mask"], lcap))
     return p
 
 
@@ -219,4 +288,8 @@ def merge_into(acc: dict, p: dict) -> dict:
     for k in ("base_totals", "length_hist", "quality_hist", "gc_hist",
               "cov_per_nt", "qual_per_nt", "base_per_nt"):
         acc[k] += p[k]
+    if "kmer_counts" in acc:
+        assert "kmer_counts" in p, "k-mer accumulator, partials without k-mers"
+        acc["kmer_counts"] += p["kmer_counts"]
+        acc["kmer_per_nt"] += p["kmer_per_nt"]
     return acc

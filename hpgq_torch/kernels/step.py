@@ -1,4 +1,4 @@
-"""Per-batch stats steps: wire decode -> pad -> K1 partials -> merge.
+"""Per-batch stats steps: wire decode -> pad -> K1/K2 partials -> merge.
 
 Torch counterparts of ``stats_jnp.make_stats_step`` (plain and bitpack
 wires) and ``make_stats_step2u`` (``stats_jnp.py:732-761``, ``:816-924``).
@@ -44,8 +44,8 @@ def _merge(acc, p):
     return acc
 
 
-def _apply_partials(lcap: int, phred: int, crit):
-    pfn = make_batch_partials(lcap, phred, crit)
+def _apply_partials(lcap: int, phred: int, crit, kmers_on: bool):
+    pfn = make_batch_partials(lcap, phred, crit, kmers_on)
 
     def apply(acc, codes, quals, lens, valid):
         return _merge(acc, pfn(codes, quals, lens, valid))
@@ -53,10 +53,12 @@ def _apply_partials(lcap: int, phred: int, crit):
     return apply
 
 
-def make_stats_step(lcap: int, phred: int, crit=None, wire=None):
+def make_stats_step(lcap: int, phred: int, crit=None, wire=None,
+                    kmers_on: bool = False):
     """``step(acc, codes, quals, lens, valid)``, or with ``wire='bitpack'``
-    ``step(acc, buf, exc=None)`` where ``exc`` is the 2c tier's sidecar."""
-    apply = _apply_partials(lcap, phred, crit)
+    ``step(acc, buf, exc=None)`` where ``exc`` is the 2c tier's sidecar.
+    With ``kmers_on`` the accumulator must carry the k-mer fields."""
+    apply = _apply_partials(lcap, phred, crit, kmers_on)
     if wire is None:
         def step(acc, codes, quals, lens, valid):
             _count_tier("plain")
@@ -79,10 +81,11 @@ def make_stats_step(lcap: int, phred: int, crit=None, wire=None):
     return step_wire
 
 
-def make_stats_step2u(lcap: int, phred: int, crit, L: int):
+def make_stats_step2u(lcap: int, phred: int, crit, L: int,
+                      kmers_on: bool = False):
     """``step(acc, buf, exc, pal, n_valid)`` over the 2u (uniform) wire;
     ``L`` is the uniform read length, which the wire width cannot carry."""
-    apply = _apply_partials(lcap, phred, crit)
+    apply = _apply_partials(lcap, phred, crit, kmers_on)
 
     def step(acc, buf, exc, pal, n_valid):
         _count_tier("2u")

@@ -4,12 +4,15 @@ It holds the port's results against the reads as they were generated: it
 takes the ``(name, seq, qual)`` records that ``tests/gen.make_records``
 returns, not the FASTQ file, so neither the shared reader nor the packer
 is on its path, and it imports nothing of ``hpgq`` or of the port.  The
-semantics are those of ``hpgq/oracle/baseline.py`` (``block_stats`` and
-``block_verdicts``; decision tags [D1]-[D3] of ``hpgq/oracle/spec.py``),
-without k-mers and without the legacy quality position window.
+semantics are those of ``hpgq/oracle/baseline.py`` (``block_stats``,
+``block_verdicts`` and ``kmer_window_codes``; decision tags [D1]-[D5] of
+``hpgq/oracle/spec.py``), without the legacy quality position window.
 
     want = reference_stats(records, read_quality_range=(20, 60), max_N=2)
     assert_counters_equal(got, want, "label")
+
+Reads are taken in order of length, in chunks of about :data:`CHUNK_ELEMS`
+padded bases, so a few long reads do not widen every chunk.
 
 The thresholds are the keywords of :func:`hpgq_torch.stats`.
 """
@@ -23,6 +26,8 @@ import numpy as np
 MIN_VALUE, MAX_VALUE = 0, 100000  # threshold defaults, hpgq/constants.py
 QUAL_BINS, GC_BINS = 256, 101     # hpgq/core/counters.py
 BASE_C, BASE_G, BASE_N = 1, 2, 4
+KMER_K, NUM_KMERS = 5, 1024       # hpgq/constants.py
+CHUNK_ELEMS = 1 << 26             # padded bases per chunk (rows x width)
 
 _LUT = np.full(256, 5, dtype=np.int8)  # A C G T N, either case; other 5
 for _code, _ch in enumerate("ACGTN"):
@@ -38,7 +43,8 @@ COUNTER_ARRAYS = ("length_hist", "quality_hist", "gc_hist",
 @dataclasses.dataclass
 class ReferenceCounters:
     """The fields of ``hpgq.core.counters.StatsCounters`` that ``stats``
-    fills without k-mers; arrays are as wide as the longest read."""
+    fills; arrays are as wide as the longest read, and the k-mer tables
+    are None unless asked for."""
 
     num_reads: int = 0
     num_passed: int = 0
@@ -58,6 +64,8 @@ class ReferenceCounters:
     count_quality_per_nt: np.ndarray = None
     acc_quality_per_nt: np.ndarray = None
     base_per_nt: np.ndarray = None
+    kmer_counts: np.ndarray = None
+    kmer_counts_by_pos: np.ndarray = None
 
 
 def _bounds(rng, lo=MIN_VALUE, hi=MAX_VALUE):
@@ -122,15 +130,38 @@ def _verdicts(codes, quals, lens, mask, phred, thr):
     return ok
 
 
-def reference_stats(records, phred: int = 33, chunk: int = 65536,
+def _kmers(codes, lens):
+    """[D5] (kmer, position) counts of a chunk's valid 5-mer windows,
+    ``[NUM_KMERS, L - 4]``, by one ``np.bincount``."""
+    W = codes.shape[1] - KMER_K + 1
+    if W <= 0:
+        return np.zeros((NUM_KMERS, 0), np.int64)
+    # int32 keys while kmer * W + pos fits (W < 2M), int64 past that
+    dt = np.int32 if NUM_KMERS * W < 2 ** 31 else np.int64
+    kc = np.zeros(codes[:, :W].shape, dt)
+    ok = np.ones(kc.shape, bool)
+    for i in range(KMER_K):
+        part = codes[:, i:i + W]
+        kc *= 4
+        kc += np.minimum(part, 3)
+        ok &= part < 4
+    ok &= np.arange(W)[None, :] + KMER_K <= lens[:, None]
+    kc *= W
+    kc += np.arange(W, dtype=dt)[None, :]
+    return np.bincount(kc[ok], minlength=NUM_KMERS * W).reshape(NUM_KMERS, W)
+
+
+def reference_stats(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
                     read_length_range=None, read_quality_range=None,
                     max_N=None, max_out_of_quality=None, left=None,
-                    right=None) -> ReferenceCounters:
+                    right=None, kmers: bool = False) -> ReferenceCounters:
     """Counters of ``stats`` over ``records`` with the given thresholds,
     as the single-CPU oracle computes them: statistics over the passing
     reads only, integer histogram keys, and ``acc_quality`` the f64 sum of
     each read's f32 mean quality [D1].  With no threshold set the filter
-    is off: every read counts, and the passed/failed counts stay 0."""
+    is off: every read counts, and the passed/failed counts stay 0.
+    ``kmers`` adds ``kmer_counts`` and ``kmer_counts_by_pos``.  ``chunk``
+    bounds the padded bases (rows x width) of one chunk."""
     filter_on = any(v is not None for v in (
         read_length_range, read_quality_range, max_N, max_out_of_quality,
         left, right))
@@ -142,7 +173,10 @@ def reference_stats(records, phred: int = 33, chunk: int = 65536,
         "left": _window(left), "right": _window(right),
         "max_N": MAX_VALUE if max_N is None else int(max_N),
     }
-    width = max((len(r[1]) for r in records), default=0)
+    lengths = np.fromiter((len(r[1]) for r in records), dtype=np.int64,
+                          count=len(records))
+    order = np.argsort(lengths, kind="stable")
+    width = int(lengths.max()) if len(records) else 0
     c = ReferenceCounters(
         min_length=MAX_VALUE,
         length_hist=np.zeros(width + 1, np.int64),
@@ -151,9 +185,20 @@ def reference_stats(records, phred: int = 33, chunk: int = 65536,
         count_quality_per_nt=np.zeros(width, np.int64),
         acc_quality_per_nt=np.zeros(width, np.int64),
         base_per_nt=np.zeros((5, width), np.int64))
-    for at in range(0, len(records), chunk):
-        codes, quals, lens, mask = _padded(records[at:at + chunk], phred)
-        ok = _verdicts(codes, quals, lens, mask, phred, thr)
+    if kmers:
+        c.kmer_counts_by_pos = np.zeros((NUM_KMERS, width), np.int64)
+    at = 0
+    while at < len(records):
+        # the rows of a chunk are no longer than its last (longest) read
+        end = at + 1
+        while (end < len(records)
+               and (end + 1 - at) * max(int(lengths[order[end]]), 1) <= chunk):
+            end += 1
+        codes, quals, lens, mask = _padded(
+            [records[i] for i in order[at:end]], phred)
+        at = end
+        ok = _verdicts(codes, quals, lens, mask, phred, thr) if filter_on \
+            else np.ones(lens.shape, bool)
         c.num_reads += int(ok.sum())
         c.num_failed += int((~ok).sum())
         if not ok.any():
@@ -186,6 +231,11 @@ def reference_stats(records, phred: int = 33, chunk: int = 65536,
             n + int(m.sum()) for n, m in zip(
                 (c.num_As, c.num_Cs, c.num_Gs, c.num_Ts, c.num_Ns),
                 per_base))
+        if kmers:
+            k2d = _kmers(codes, lens)
+            c.kmer_counts_by_pos[:, :k2d.shape[1]] += k2d
+    if kmers:
+        c.kmer_counts = c.kmer_counts_by_pos.sum(axis=1)
     if filter_on:
         c.num_passed = c.num_reads
     else:
@@ -193,17 +243,29 @@ def reference_stats(records, phred: int = 33, chunk: int = 65536,
     return c  # min_length stays MAX_VALUE when no read counts
 
 
+def _has_kmers(c) -> bool:
+    """A StatsCounters says so itself; a ReferenceCounters by its tables."""
+    return bool(getattr(c, "kmers_on", c.kmer_counts is not None))
+
+
 def assert_counters_equal(got, want, label: str,
                           rel_quality: float = 1e-3) -> None:
     """Every integer counter of ``got`` equals ``want`` (arrays compared
-    after zero-padding to a common width); ``acc_quality`` to
-    ``rel_quality`` relative.  Raises AssertionError naming the field."""
+    after zero-padding to a common width), the k-mer tables too when
+    ``want`` has them; ``acc_quality`` to ``rel_quality`` relative.  Raises
+    AssertionError naming the field."""
+    arrays = COUNTER_ARRAYS
+    kmers = [_has_kmers(x) for x in (got, want)]
+    if any(kmers):
+        if not all(kmers):
+            raise AssertionError("%s: kmer tables on one side only" % label)
+        arrays += ("kmer_counts", "kmer_counts_by_pos")
     for key in COUNTER_KEYS:
         a, b = getattr(got, key), getattr(want, key)
         if a != b:
             raise AssertionError("%s: %s %r != reference %r"
                                  % (label, key, a, b))
-    for key in COUNTER_ARRAYS:
+    for key in arrays:
         a, b = getattr(got, key), getattr(want, key)
         m = max(a.shape[-1], b.shape[-1])
         a, b = (np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, m - x.shape[-1])])

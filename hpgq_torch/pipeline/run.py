@@ -11,8 +11,11 @@ The port of ``hpgq/pipeline/run.py``'s single-end ``run_stats``
   pinned buffers stay referenced until the step has been enqueued.
 * Each shard thread runs its steps on its own ``torch.cuda.Stream``.
 
-Paired input, ``--kmers``, ``--sharded``, ``--profile-dir`` and reads over
-4096 on CUDA raise ``NotImplementedError`` naming their ROADMAP item.
+* Reads of any length run on CUDA: K1 up to a 4096-column bucket, K2
+  above it; ``--kmers`` rides on either kernel's pass mask.
+
+Paired input (with or without ``--kmers``), ``--sharded`` and
+``--profile-dir`` raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -196,7 +199,8 @@ def _run_stats_parallel(opts, timers, crit, br, nshards: int, device,
                 else None
             with _stream_ctx(stream):
                 sess = StatsSession(opts.quality_encoding_value, crit,
-                                    batch_reads=br, device=device)
+                                    batch_reads=br, device=device,
+                                    kmers_on=opts.kmers_on)
                 with FastqReader(opts.in_filename,
                                  batch_size=_reader_batch(opts, device),
                                  start_offset=start, end_offset=end) as rd:
@@ -231,7 +235,6 @@ def _run_stats_parallel(opts, timers, crit, br, nshards: int, device,
 def _check_ported(opts) -> None:
     missing = [
         (opts.paired_end, "paired-end input", 7),
-        (opts.kmers_on, "--kmers", 8),
         (getattr(opts, "sharded", False), "--sharded", 14),
         (getattr(opts, "profile_dir", None), "--profile-dir", 16),
     ]
@@ -242,8 +245,8 @@ def _check_ported(opts) -> None:
                 "item %d); use hpgq for it" % (what, item))
     if not getattr(opts, "use_pallas", True):
         logging.getLogger("hpgq").warning(
-            "--no-pallas has no effect in hpgq_torch: CUDA runs the K1 "
-            "kernel, the CPU its plain twin")
+            "--no-pallas has no effect in hpgq_torch: CUDA runs the K1/K2 "
+            "kernels, the CPU their plain twin")
 
 
 def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
@@ -276,7 +279,8 @@ def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
 
     sess = StatsSession(opts.quality_encoding_value, crit, batch_reads=br,
                         device=dev,
-                        lcap=max(128, resumed.lcap) if resumed else 128)
+                        lcap=max(128, resumed.lcap) if resumed else 128,
+                        kmers_on=opts.kmers_on)
     if resumed:
         resumed.ensure_length(sess.lcap)
         sess.acc.counters = resumed

@@ -3,7 +3,15 @@
 The port's ``StatsSession`` (``hpgq/pipeline/session.py:43-128``).  Read
 lengths are bucketed to multiples of 128 columns; a block longer than the
 current bucket finishes the device accumulator and rebuilds it wider (the
-host counters carry over, since merging is associative).
+host counters carry over, since merging is associative), which also moves
+the batches from K1 to K2 once the bucket passes 4096.
+
+Rows: short-read blocks (L <= 4096, K1) are padded to
+``hpgq.io.packer.bucket_rows``' 16,384-row buckets as in ``hpgq``.  A
+long-read block (K2) is padded only to a multiple of
+:data:`LONG_ROW_MULTIPLE`: those buckets exist to bound XLA's compiled
+shapes, eager PyTorch has no shape cache, and a 16 MB block of 10 kb reads
+holds only a few hundred reads, so 16,384 rows would be mostly padding.
 """
 
 from __future__ import annotations
@@ -16,36 +24,38 @@ from ..core.accumulator import DeviceAccumulator
 from ..kernels.stats_cuda import MAX_LCAP
 from ..kernels.wire_torch import bitwire_logical_len
 
+LONG_ROW_MULTIPLE = 64  # row padding of a long-read (K2) block
+
+
+def batch_rows(n: int, L: int, batch_reads: int) -> int:
+    """Device rows for an ``n``-read block packed ``L`` columns wide."""
+    if L > MAX_LCAP:
+        return round_up(max(int(n), 1), LONG_ROW_MULTIPLE)
+    return bucket_rows(n, batch_reads)
+
 
 class StatsSession:
     """Streaming single-end stats accumulation with length growth."""
 
     def __init__(self, phred, crit=None, batch_reads=16384, device="cpu",
-                 lcap: int = 128, wire="auto"):
+                 lcap: int = 128, wire="auto", kmers_on: bool = False):
         self.phred = phred
         self.crit = crit
         self.batch_reads = batch_reads
         self.device = torch.device(device)
         self.wire = wire
-        self._check_lcap(lcap)
-        self.acc = DeviceAccumulator(lcap, phred, crit, self.device, wire)
+        self.kmers_on = kmers_on
+        self.acc = DeviceAccumulator(lcap, phred, crit, self.device, wire,
+                                     kmers_on)
 
     @property
     def lcap(self):
         return self.acc.lcap
 
-    def _check_lcap(self, lcap: int):
-        if self.device.type == "cuda" and lcap > MAX_LCAP:
-            raise NotImplementedError(
-                "reads longer than %d on CUDA need the long-read kernel K2, "
-                "not ported yet (ROADMAP.md queue 1 item 9); run with "
-                "device='cpu'" % MAX_LCAP)
-
     def _grow(self, lcap: int):
-        self._check_lcap(lcap)
         old = self.acc.finish()
         self.acc = DeviceAccumulator(lcap, self.phred, self.crit, self.device,
-                                     self.wire)
+                                     self.wire, self.kmers_on)
         self.acc.counters = old
         old.ensure_length(lcap)
 
@@ -55,7 +65,7 @@ class StatsSession:
         or ``(codes, quals, lens, valid)``.  Reads ``self.lcap`` once, so a
         pool thread may pack while the feeding thread grows the session."""
         L = max(round_up(max(block.max_len(), 1), 128), self.lcap)
-        rows = bucket_rows(block.num_reads, batch_reads or self.batch_reads)
+        rows = batch_rows(block.num_reads, L, batch_reads or self.batch_reads)
         if self.acc.wire == "bitpack":
             from hpgq.io.packer import pack_block_wire, try_pack_block_2u
 

@@ -3,9 +3,9 @@ holds the port against on the card, against ``hpgq``'s single-CPU oracle.
 
 The same generated reads go through ``hpgq.oracle.baseline`` (by way of the
 shared reader and packer) and through ``reference_stats`` (from the
-records themselves); every integer counter must be equal and
-``acc_quality`` within 1e-9 relative (both sum the same f32 means in f64,
-only in another order).
+records themselves); every integer counter must be equal, the k-mer
+tables too when asked for, and ``acc_quality`` within 1e-9 relative (both
+sum the same f32 means in f64, only in another order).
 """
 
 import dataclasses
@@ -28,6 +28,7 @@ CORPORA = {
     "binned": dict(n=1500, min_len=100, max_len=100, n_prob=0.01, seed=5,
                    qual_bins=(2, 12, 23, 37)),
     "varlong": dict(n=1200, min_len=60, max_len=190, n_prob=0.01, seed=6),
+    "long": dict(n=40, min_len=3000, max_len=9000, n_prob=0.002, seed=13),
 }
 BENCH = dict(read_length_range=(50, 200), read_quality_range=(20, 60),
              max_N=2)
@@ -42,8 +43,8 @@ FILTERS = {
 }
 
 
-def _hpgq_oracle(path, crit):
-    acc = StatsCounters(phred=33)
+def _hpgq_oracle(path, crit, kmers=False):
+    acc = StatsCounters(phred=33, kmers_on=kmers)
     n_passed = n_failed = 0
     with FastqReader(path, batch_size=512) as rd:
         for block in rd:
@@ -53,7 +54,8 @@ def _hpgq_oracle(path, crit):
                 ok = ob.block_verdicts(codes, quals, lens, crit, 33) & valid
                 n_passed += int(ok.sum())
                 n_failed += int((valid & ~ok).sum())
-            acc = acc.merge(ob.block_stats(codes, quals, lens, ok, phred=33))
+            acc = acc.merge(ob.block_stats(codes, quals, lens, ok,
+                                           kmers_on=kmers, phred=33))
     acc.num_passed, acc.num_failed = n_passed, n_failed
     return acc
 
@@ -70,7 +72,7 @@ def test_reference_equals_hpgq_oracle(tmp_path, corpus, setting):
     path, records = _records(tmp_path, corpus)
     kw = FILTERS[setting]
     want = _hpgq_oracle(path, filter_criteria(**kw))
-    got = reference_stats(records, chunk=256, **kw)
+    got = reference_stats(records, chunk=16384, **kw)
     assert_counters_equal(got, want, "%s/%s" % (corpus, setting),
                           rel_quality=1e-9)
     if kw:
@@ -93,3 +95,48 @@ def test_reference_comparison_catches_one_wrong_field(tmp_path, field):
     got = dataclasses.replace(want, **{field: value})
     with pytest.raises(AssertionError, match=field):
         assert_counters_equal(got, want, "mutated")
+
+
+@pytest.mark.parametrize("setting", ["none", "bench", "long"])
+@pytest.mark.parametrize("corpus", ["golden", "varlong", "long"])
+def test_reference_kmers_equal_hpgq_oracle(tmp_path, corpus, setting):
+    """``kmers=True``: both k-mer tables equal the baseline's
+    (``np.add.at`` there, one ``np.bincount`` per chunk here), over chunks
+    of a few rows and over one chunk."""
+    path, records = _records(tmp_path, corpus)
+    kw = {"none": {}, "bench": BENCH,
+          "long": dict(read_length_range=(4000, 8000), max_N=20)}[setting]
+    want = _hpgq_oracle(path, filter_criteria(**kw), kmers=True)
+    for chunk in (20000, 1 << 26):
+        got = reference_stats(records, chunk=chunk, kmers=True, **kw)
+        assert got.kmer_counts_by_pos.shape[1] == max(len(r[1])
+                                                      for r in records)
+        assert_counters_equal(got, want, "%s/%s kmers" % (corpus, setting),
+                              rel_quality=1e-9)
+    if corpus == "long" and setting == "none":
+        assert int(got.kmer_counts.sum()) > 100000
+
+
+def test_reference_comparison_needs_kmer_tables_on_both_sides(tmp_path):
+    _, records = _records(tmp_path, "golden")
+    with_k = reference_stats(records, kmers=True)
+    without = reference_stats(records)
+    with pytest.raises(AssertionError, match="one side only"):
+        assert_counters_equal(without, with_k, "no tables")
+    with_k.kmer_counts_by_pos[7, 3] += 1
+    with pytest.raises(AssertionError, match="kmer_counts_by_pos"):
+        assert_counters_equal(with_k, reference_stats(records, kmers=True),
+                              "mutated")
+
+
+def test_reference_counts_reads_over_100000_without_filter(tmp_path):
+    """With no threshold set every read counts, also one longer than the
+    MAX sentinel (100000) that a length check would reject."""
+    path = str(tmp_path / "huge.fq")
+    records = make_fastq(path, 3, min_len=100001, max_len=100100, seed=3)
+    want = _hpgq_oracle(path, None)
+    got = reference_stats(records)
+    assert got.num_reads == 3 and got.max_length > 100000
+    assert_counters_equal(got, want, "over 100000", rel_quality=1e-9)
+    filtered = reference_stats(records, max_N=5)
+    assert (filtered.num_reads, filtered.num_failed) == (0, 3)

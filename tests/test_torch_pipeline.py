@@ -53,10 +53,12 @@ CORPORA = {
     # variable unbinned reads over two length buckets
     "varlong": dict(n=1500, min_len=60, max_len=190, n_prob=0.01, seed=6),
 }
+# long reads past K1's 4096 columns (K2 on the card), unbinned qualities
+LONG_CORPUS = dict(n=60, min_len=4500, max_len=9000, n_prob=0.002, seed=8)
 
 
 def _corpus(tmp_path, name):
-    kw = dict(CORPORA[name])
+    kw = dict(LONG_CORPUS if name == "long" else CORPORA[name])
     path = str(tmp_path / ("%s.fq" % name))
     make_fastq(path, kw.pop("n"), **kw)
     return path
@@ -97,8 +99,8 @@ def _run_cli(fn, args, outdir):
     return buf.getvalue()
 
 
-def _assert_cli_identical(tmp_path, path, filtered):
-    args = ["-f", path, "--log-file", str(tmp_path / "log")]
+def _assert_cli_identical(tmp_path, path, filtered, extra=()):
+    args = ["-f", path, "--log-file", str(tmp_path / "log")] + list(extra)
     args += FILTER_FLAGS if filtered else []
     ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
     out_ref = _run_cli(hpgq_main, args, ref_dir)
@@ -328,11 +330,6 @@ def test_session_length_growth(tmp_path):
     assert got.equals(want)
 
 
-def test_cuda_lcap_over_k1_limit_raises():
-    with pytest.raises(NotImplementedError, match="K2"):
-        StatsSession(33, device="cuda", lcap=4224)
-
-
 def test_resolve_wire_precedence(monkeypatch):
     monkeypatch.delenv("HPGQ_WIRE", raising=False)
     assert resolve_wire("auto", "cpu") is None
@@ -391,6 +388,13 @@ assert_counters_equal(got, reference_stats(records, **chip_smoke.BENCH_FILTER),
 assert 0 < got.num_passed < 3000
 from hpgq_torch.kernels import step
 assert step.WIRE_BATCHES.get("2u"), step.WIRE_BATCHES
+# chip_smoke's long-read check (phase 8), small: k-mers and the long filter
+lpath = os.path.join(outdir, "long.fq")
+lrec = chip_smoke.long_read_corpus(lpath, n=30, n_huge=2,
+                                   lengths=(2000, 6000), huge=(8000, 9000))
+runs = chip_smoke.long_read_runs(lpath, lrec, outdir, "cpu")
+assert runs["kmers"][0].kmer_counts.sum() > 0
+assert runs["kmers"][0].max_length > 8000, runs["kmers"][0].max_length
 print("ok", len(names))
 """
 
@@ -400,7 +404,8 @@ def test_imports_load_no_jax(tmp_path):
     of ``hpgq`` directly; every module of the port and every ``hpgq``
     module the port imports anywhere (also inside functions) loads; and
     chip_smoke's end-to-end check (the bench filter over 2u-wire batches,
-    held against ``hpgq_torch.oracle``) runs on the CPU."""
+    held against ``hpgq_torch.oracle``) and its long-read check (k-mers
+    and a long-read filter, small) run on the CPU."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, REPO, str(tmp_path / "in.fq"),
          str(tmp_path)], capture_output=True, text=True, cwd=str(tmp_path),
@@ -460,10 +465,9 @@ def test_unported_commands_exit_nonzero(tmp_path, capsys, command):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kmers=True), "--kmers"),
     (dict(in_path2="mate2.fq"), "paired-end"),
     (dict(sharded=True), "--sharded"),
-], ids=["kmers", "paired", "sharded"])
+], ids=["paired", "sharded"])
 def test_unported_options_raise(tmp_path, kw, what):
     path = _corpus(tmp_path, "golden")
     if "in_path2" in kw:
@@ -472,3 +476,91 @@ def test_unported_options_raise(tmp_path, kw, what):
 
     with pytest.raises(NotImplementedError, match=what):
         hpgq_torch.stats(path, outdir=str(tmp_path), device="cpu", **kw)
+
+
+def test_kmers_with_paired_input_raises(tmp_path):
+    """--kmers is ported for single-end input only: with a mate file it
+    still raises, naming paired input (ROADMAP queue 1 item 7)."""
+    import hpgq_torch
+
+    path = _corpus(tmp_path, "golden")
+    with pytest.raises(NotImplementedError, match="paired-end"):
+        hpgq_torch.stats(path, in_path2=path, outdir=str(tmp_path),
+                         device="cpu", kmers=True)
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["all", "filter"])
+@pytest.mark.parametrize("corpus", ["varlong", "long"])
+def test_cli_kmers_output_identical_to_hpgq(tmp_path, monkeypatch, corpus,
+                                            filtered):
+    """``--kmers`` on short reads (K1's contract) and on long reads (K2's):
+    the summary and every k-mer report byte-identical to ``hpgq``'s.  The
+    long corpus runs with a small --batch-size so that ``hpgq`` on the CPU
+    stays small; results do not depend on it."""
+    monkeypatch.setenv("HPGQ_WIRE", "bitpack")
+    path = _corpus(tmp_path, corpus)
+    extra = ["--kmers"]
+    if corpus == "long":
+        extra += ["--batch-size", "24"]
+        if filtered:  # a long-read filter that passes some reads
+            extra += ["--read-length-range", "5000,8500",
+                      "--read-quality-range", "15,60", "--max-N", "20"]
+    elif filtered:
+        extra += FILTER_FLAGS
+    _assert_cli_identical(tmp_path, path, False, extra)
+    names = os.listdir(tmp_path / "port")
+    for suffix in (".kmers.txt", ".kmers.per.nt.data", ".summary.txt"):
+        assert any(n.endswith(suffix) for n in names), suffix
+
+
+def test_long_read_block_packs_few_rows(tmp_path):
+    """A block of 40 reads of 5-12 kb (the K2 path) packs to at most 64
+    rows, not to a 16,384-row bucket; the counters still equal ``hpgq``'s
+    and the oracle's."""
+    import hpgq
+
+    path = str(tmp_path / "long.fq")
+    make_fastq(path, 40, min_len=5000, max_len=12000, n_prob=0.002, seed=12)
+    sess = StatsSession(33, batch_reads=10240, device="cpu", wire="bitpack")
+    with FastqReader(path, batch_size=10000) as rd:
+        blocks = list(rd)
+    assert len(blocks) == 1
+    packed = sess.pack(blocks[0])
+    buf = packed[0][0] if isinstance(packed[0], tuple) else packed[0]
+    assert buf.shape[0] <= 64
+    codes = StatsSession(33, batch_reads=10240, device="cpu",
+                         wire="off").pack(blocks[0])[0]
+    assert codes.shape == (64, -(-blocks[0].max_len() // 128) * 128)
+    got = _api(path, str(tmp_path))
+    ref = hpgq.stats(path, outdir=str(tmp_path / "ref"), batch_size=40,
+                     read_length_range=(45, 140),
+                     read_quality_range=(20, 60), max_N=2)
+    assert got.equals(ref)
+    assert got.equals(_oracle(path, CRIT))
+    want = hpgq.stats(path, outdir=str(tmp_path / "ref"), batch_size=40,
+                      report=False)
+    import hpgq_torch
+
+    assert hpgq_torch.stats(path, outdir=str(tmp_path), device="cpu",
+                            report=False).equals(want)
+
+
+@pytest.mark.parametrize("wire", ["off", "bitpack"])
+def test_short_read_batches_keep_bucket_rows(tmp_path, monkeypatch, wire):
+    """The main path (lcap <= 4096) still pads to hpgq's 16,384-row
+    buckets: the 2u and plain batches keep their shapes."""
+    from hpgq.io.packer import bucket_rows
+
+    monkeypatch.setenv("HPGQ_WIRE", wire)
+    path = _corpus(tmp_path, "uniform")
+    sess = StatsSession(33, batch_reads=131072, device="cpu")
+    with FastqReader(path, batch_size=100000) as rd:
+        block = next(iter(rd))
+    packed = sess.pack(block)
+    rows = bucket_rows(block.num_reads, 131072)
+    assert rows == 16384
+    if wire == "bitpack":
+        assert packed[0][0] == "2u"
+        assert packed[0][1].shape[0] == rows
+    else:
+        assert packed[0].shape == (rows, 128)

@@ -1,12 +1,13 @@
-"""The port's K1 contract (plain twin on the CPU) against the JAX engine.
+"""The port's K1/K2 contract (plain twin on the CPU) against the JAX engine.
 
 ``hpgq_torch.kernels.stats_cuda.make_batch_partials`` runs the plain twin
-for CPU tensors; it is held against the Pallas kernel K1 in interpret mode
-and against ``stats_jnp.batch_partials`` + ``verdicts`` on the same numpy
-inputs (the cases of ``tests/test_pallas.py``).  Integer fields match
+for CPU tensors; it is held against the Pallas kernels K1 and K2 in
+interpret mode and against ``stats_jnp.batch_partials`` + ``verdicts`` on
+the same numpy inputs (the cases of ``tests/test_pallas.py``), with and
+without the k-mer ride-along.  Integer fields match
 exactly; the f32 ``acc_quality`` to 1e-3 relative, the tolerance
 ``test_pallas.py`` uses, because f32 sums taken in another order differ in
-the last bits.  The CUDA kernel itself is checked on the card by
+the last bits.  The CUDA kernels themselves are checked on the card by
 ``chip_smoke.py``, which imports no jax.
 """
 
@@ -17,8 +18,12 @@ import pytest
 import torch
 
 from hpgq.constants import PHRED33
-from hpgq.kernels import stats_jnp
-from hpgq.kernels.stats_pallas import TB, batch_partials_pallas
+from hpgq.kernels import stats_jnp, stats_pallas
+from hpgq.kernels.stats_pallas import (
+    TB,
+    batch_partials_pallas,
+    batch_partials_pallas_long,
+)
 from hpgq.options import FilterCriteria
 from hpgq_torch.core.accumulator import from_jax_partials, to_numpy
 from hpgq_torch.kernels import build, stats_cuda, stats_torch
@@ -52,6 +57,16 @@ INT_KEYS = (
     "length_hist", "quality_hist", "gc_hist", "cov_per_nt", "qual_per_nt",
     "base_per_nt",
 )
+KMER_KEYS = ("kmer_counts", "kmer_per_nt")
+# a long-read filter: every check at once, with a quality window
+LONG_CRIT = FilterCriteria(
+    min_read_length=500, max_read_length=7000,
+    min_read_quality=20, max_read_quality=40,
+    left_length=50, min_left_quality=15, max_left_quality=60,
+    right_length=80, min_right_quality=15,
+    max_out_of_quality=4000, max_N=150,
+    begin_quality_nt=100, end_quality_nt=5000,
+)
 
 
 def _rand_batch(B, L, seed=0, with_n=True, varlen=True):
@@ -69,14 +84,14 @@ def _rand_batch(B, L, seed=0, with_n=True, varlen=True):
     return codes, quals, lens, valid
 
 
-def _port(codes, quals, lens, valid, lcap, crit):
-    fn = make_batch_partials(lcap, PHRED33, crit)
+def _port(codes, quals, lens, valid, lcap, crit, kmers_on=False):
+    fn = make_batch_partials(lcap, PHRED33, crit, kmers_on)
     return fn(*(torch.from_numpy(np.ascontiguousarray(a))
                 for a in (codes, quals, lens, valid)))
 
 
-def _compare(want, got, n_sel):
-    for k in INT_KEYS:
+def _compare(want, got, n_sel, keys=INT_KEYS):
+    for k in keys:
         np.testing.assert_array_equal(np.asarray(want[k]),
                                       got[k].numpy(), err_msg=k)
     if n_sel:
@@ -171,6 +186,28 @@ def test_merge_into_matches_jnp(crit):
                                float(acc_j["acc_quality"]), rtol=1e-6)
 
 
+@pytest.mark.parametrize("kmers_acc,kmers_p,drop,error", [
+    (True, False, None, AssertionError),  # k-mer state, k-mer-less batch
+    (False, False, "cov_per_nt", KeyError),  # a fixed field missing
+    (False, True, None, None),  # k-mer fields without k-mer state: unused
+], ids=["kmers-missing", "field-missing", "kmers-unused"])
+def test_merge_into_field_mismatch(kmers_acc, kmers_p, drop, error):
+    """merge_into drops no field silently: partials that lack a field the
+    accumulator keeps raise."""
+    codes, quals, lens, valid = _rand_batch(50, 128, seed=49)
+    p = _port(codes, quals, lens, valid, 128, None, kmers_on=kmers_p)
+    p.pop("_passed_mask")
+    if drop:
+        del p[drop]
+    acc = stats_torch.zero_partials(128, kmers_on=kmers_acc)
+    if error is None:
+        stats_torch.merge_into(acc, p)
+        assert int(acc["num_reads"]) == int(valid.sum())
+    else:
+        with pytest.raises(error):
+            stats_torch.merge_into(acc, p)
+
+
 def test_carry_state_from_jax():
     """State carried across: half the batches through the JAX step, the
     partials handed over with from_jax_partials, the rest through the
@@ -260,3 +297,194 @@ def test_build_raises_when_nvcc_fails(monkeypatch, tmp_path):
         build.build()
     # nothing half-built is left behind to be loaded later
     assert not list((tmp_path / "build").rglob("*.so"))
+
+
+@pytest.mark.parametrize("crit", [None, CRIT, LONG_CRIT],
+                         ids=["plain", "filtered", "long"])
+@pytest.mark.parametrize("B,L,lcap", [
+    (TB, 4608, 4608),      # just past K1's limit
+    (100, 8192, 8192),     # rows not a multiple of a tile
+    (64, 4608, 8192),      # lcap wider than the batch L
+])
+def test_long_partials_match_pallas_and_jnp(B, L, lcap, crit):
+    """The K2 contract's plain twin against the blockwise Pallas kernel
+    (interpret mode) and against jnp, at test_pallas.py's long shapes."""
+    codes, quals, lens, valid = _rand_batch(B, L, seed=B + L)
+    lens[:3] = 0  # length-0 rows take no GC key
+    got = _port(codes, quals, lens, valid, lcap, crit)
+    if crit is not None:
+        ok = np.asarray(stats_jnp.verdicts(codes, quals, lens, crit, PHRED33))
+        sel = valid & ok
+        assert int(got["_num_passed"]) == int(sel.sum())
+        assert int(got["_num_failed"]) == int((valid & ~ok).sum())
+    else:
+        sel = valid
+    np.testing.assert_array_equal(got["_passed_mask"].numpy(), sel)
+    _compare(stats_jnp.batch_partials(codes, quals, lens, sel, lcap, PHRED33),
+             got, int(sel.sum()))
+    p_pal = batch_partials_pallas_long(codes, quals, lens, valid, lcap,
+                                       PHRED33, crit, interpret=True)
+    np.testing.assert_array_equal(np.asarray(p_pal["_passed_mask"]), sel)
+    _compare(p_pal, got, int(sel.sum()))
+
+
+def test_long_max_sentinel_no_overflow():
+    """Reads of 24576 with only a minimum quality set: the substituted MAX
+    sentinel (100000) times the length passes int32, and every valid read
+    must pass, as in the blockwise Pallas kernel."""
+    B, L = 32, 24576
+    crit = FilterCriteria(min_read_quality=5)
+    rng = np.random.default_rng(77)
+    lens = np.full(B, L, np.int32)
+    codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
+    quals = rng.integers(40, 70, size=(B, L)).astype(np.uint8)
+    valid = rng.random(B) < 0.9
+    got = _port(codes, quals, lens, valid, L, crit)
+    assert int(got["_num_passed"]) == int(valid.sum())
+    assert int(got["_num_failed"]) == 0
+    np.testing.assert_array_equal(got["_passed_mask"].numpy(), valid)
+    p_pal = batch_partials_pallas_long(codes, quals, lens, valid, L, PHRED33,
+                                       crit, interpret=True)
+    np.testing.assert_array_equal(np.asarray(p_pal["_passed_mask"]), valid)
+    _compare(p_pal, got, int(valid.sum()))
+
+
+@pytest.mark.parametrize("crit", [None, LONG_CRIT], ids=["plain", "long"])
+def test_long_twin_past_tpu_limit_matches_jnp(crit):
+    """lcap 66048, past the Pallas kernel's 65536: the twin (what K2 is
+    held against on the card) against jnp, which ``hpgq`` runs there."""
+    B, L = 4, 66048
+    codes, quals, lens, valid = _rand_batch(B, L, seed=66)
+    lens[0], valid[0] = L, True
+    got = _port(codes, quals, lens, valid, L, crit, kmers_on=True)
+    sel = valid
+    if crit is not None:
+        sel = valid & np.asarray(stats_jnp.verdicts(codes, quals, lens, crit,
+                                                    PHRED33))
+    np.testing.assert_array_equal(got["_passed_mask"].numpy(), sel)
+    want = stats_jnp.batch_partials(codes, quals, lens, sel, L, PHRED33,
+                                    kmers_on=True)
+    _compare(want, got, int(sel.sum()), INT_KEYS + KMER_KEYS)
+
+
+@pytest.mark.parametrize("crit", [None, CRIT], ids=["plain", "filtered"])
+@pytest.mark.parametrize("L", [128, 4608])
+def test_kmers_ride_along_matches_pallas(L, crit):
+    """k-mers on the pass mask of K1's (lcap 128) or K2's (lcap 4608)
+    contract against stats_pallas.make_batch_partials(kmers_on=True)."""
+    codes, quals, lens, valid = _rand_batch(TB, L, seed=9 + L)
+    got = _port(codes, quals, lens, valid, L, crit, kmers_on=True)
+    fn = stats_pallas.make_batch_partials(L, PHRED33, True, crit,
+                                          interpret=True)
+    want = fn(codes, quals, lens, valid)
+    _compare(want, got, int(got["_passed_mask"].sum()),
+             INT_KEYS + KMER_KEYS)
+    assert int(got["kmer_counts"].sum()) > 0
+    assert got["kmer_per_nt"].shape == (1024, L)
+
+
+def test_kmers_narrower_than_a_kmer_are_zero():
+    """A batch of width 4 (< k) has no window: zero k-mer tables of lcap
+    columns, as jnp gives."""
+    codes, quals, lens, valid = _rand_batch(40, 4, seed=4)
+    got = _port(codes, quals, lens, valid, 128, None, kmers_on=True)
+    want = stats_jnp.batch_partials(codes, quals, lens, valid, 128, PHRED33,
+                                    kmers_on=True)
+    _compare(want, got, int(valid.sum()), INT_KEYS + KMER_KEYS)
+    assert int(got["kmer_counts"].sum()) == 0
+
+
+@pytest.mark.parametrize("L", [128, 4608])
+def test_stats_step_with_kmers_matches_jax(L):
+    """make_stats_step(kmers_on=True) over several batches against the JAX
+    step with the Pallas engine in interpret mode."""
+    from hpgq_torch.kernels.step import make_stats_step
+
+    step_j = stats_jnp.make_stats_step(L, PHRED33, kmers_on=True, crit=CRIT,
+                                       jit=False, engine="pallas_interpret")
+    step_t = make_stats_step(L, PHRED33, CRIT, kmers_on=True)
+    acc_j = stats_jnp.zero_partials(L, kmers_on=True)
+    acc_t = stats_torch.zero_partials(L, kmers_on=True)
+    for s in range(2):
+        b = _rand_batch(TB, L, seed=80 + s)
+        acc_j = step_j(acc_j, *b)
+        acc_t = step_t(acc_t, *(torch.from_numpy(a) for a in b))
+    for k in INT_KEYS + KMER_KEYS + ("num_passed", "num_failed"):
+        np.testing.assert_array_equal(np.asarray(acc_j[k]),
+                                      acc_t[k].numpy(), err_msg=k)
+    np.testing.assert_allclose(float(acc_t["acc_quality"]),
+                               float(acc_j["acc_quality"]), rtol=1e-3)
+
+
+def test_carry_long_kmer_state_from_jax():
+    """A JAX accumulator with k-mers at lcap 4608 handed over with
+    from_jax_partials, continued by the port's step and folded: equal to
+    the all-JAX run, k-mer tables included."""
+    from hpgq.core.accumulator import fold_partials as fold_j
+    from hpgq.core.counters import StatsCounters
+    from hpgq_torch.core.accumulator import fold_partials
+    from hpgq_torch.kernels.step import make_stats_step
+
+    L = 4608
+    batches = [_rand_batch(TB, L, seed=90 + s) for s in range(3)]
+    step_j = stats_jnp.make_stats_step(L, PHRED33, kmers_on=True,
+                                       crit=LONG_CRIT, jit=False,
+                                       engine="pallas_interpret")
+    acc_j = step_j(stats_jnp.zero_partials(L, kmers_on=True), *batches[0])
+    acc_t = from_jax_partials({k: np.asarray(v) for k, v in acc_j.items()},
+                              "cpu")
+    assert acc_t["kmer_per_nt"].dtype == torch.int64
+    step_t = make_stats_step(L, PHRED33, LONG_CRIT, kmers_on=True)
+    for b in batches[1:]:
+        acc_t = step_t(acc_t, *(torch.from_numpy(a) for a in b))
+        acc_j = step_j(acc_j, *b)
+    got = StatsCounters(phred=PHRED33, kmers_on=True)
+    fold_partials(got, to_numpy(acc_t))
+    want = StatsCounters(phred=PHRED33, kmers_on=True)
+    fold_j(want, {k: np.asarray(v) for k, v in acc_j.items()})
+    assert got.num_passed > 0 and got.num_failed > 0
+    assert int(got.kmer_counts.sum()) > 0
+    assert got.equals(want)
+    assert (got.num_passed, got.num_failed) == (want.num_passed,
+                                                want.num_failed)
+
+
+class _CudaTyped:
+    """Stands in for a CUDA tensor where only the device is read."""
+
+    device = torch.device("cuda")
+
+
+def test_dispatch_picks_k1_or_k2_by_lcap(monkeypatch):
+    """CUDA-typed inputs go to K1 up to lcap 4096 and to K2 above it, with
+    no upper limit; CPU tensors take the plain twin and count no launch."""
+    calls = []
+
+    def record(name):
+        def fn(codes, quals, lens, valid, lcap, phred, crit=None):
+            calls.append((name, lcap))
+            return {"_passed_mask": None}
+        return fn
+
+    monkeypatch.setattr(stats_cuda, "batch_partials_cuda", record("k1"))
+    monkeypatch.setattr(stats_cuda, "batch_partials_cuda_long", record("k2"))
+    x = _CudaTyped()
+    for lcap in (128, 4096, 4224, 65536, 131072):
+        make_batch_partials(lcap, PHRED33, CRIT)(x, x, x, x)
+    assert calls == [("k1", 128), ("k1", 4096), ("k2", 4224), ("k2", 65536),
+                     ("k2", 131072)]
+    before = (stats_cuda.LAUNCHES, stats_cuda.LAUNCHES_K2)
+    for lcap in (4096, 4224):
+        t = [torch.from_numpy(a) for a in _rand_batch(16, 256, seed=lcap)]
+        p = make_batch_partials(lcap, PHRED33, CRIT, kmers_on=True)(*t)
+        assert p["kmer_per_nt"].shape == (1024, lcap)
+    assert len(calls) == 5
+    assert (stats_cuda.LAUNCHES, stats_cuda.LAUNCHES_K2) == before
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take():
+    t = [torch.from_numpy(a) for a in _rand_batch(16, 256, seed=1)]
+    with pytest.raises(ValueError, match="K2 wrapper needs CUDA tensors"):
+        stats_cuda.batch_partials_cuda_long(*t, 8192, PHRED33)
+    with pytest.raises(ValueError, match="K1 takes lcap <= 4096"):
+        stats_cuda.batch_partials_cuda(*t, 4224, PHRED33)
