@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # phases 1-5, 7 and 8 (one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5 and 7-10 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
@@ -38,6 +38,24 @@ Phases, each printing its own lines:
    with ``kmers=True`` and with a NanoFilt-style filter, each held against
    the reference (k-mer tables too), with K2 launches required; then
    reads/s and bases/s of three warm passes.
+9. Paired stats: 1,000,000 pairs of 2 x 100 bp (mate 1 is phase 4's
+   corpus, mate 2 the same recipe with seed 8); ``hpgq_torch.stats(m1,
+   m2)`` with the bench filter and with none, both mates held against
+   ``oracle.reference_paired_stats`` (statistics over the pairs where both
+   mates pass, tallies per pair), every mate batch on the 2u tier and K1;
+   then pairs/s of three warm passes.
+10. Filter: ``hpgq_torch.filter_reads`` single-end over phase 4's corpus
+    (2c tier), paired over phase 9's pairs, and with the NanoFilt-style
+    thresholds over phase 8's long reads (qn8 tier); every output file
+    byte-equal to the records ``oracle.reference_verdicts`` selects, every
+    verdict batch on the card; then reads/s (pairs/s) of three warm passes.
+
+Phases 9 and 10 reuse the corpora of phases 4 and 8, and write them when
+those phases are not selected.  On an NVIDIA H100 80GB HBM3 (700 W) the
+default run takes about 250 s of command time, the build included, of
+which phases 9 and 10 take about 100 s (half of it writing the mate-2
+corpus and computing the references); ``--phases 9,10`` alone takes about
+135 s, since it writes all three corpora itself.
 
 Imports nothing of jax: the run blocks ``import jax``, so a path that
 needed it would fail here.  Any failure exits non-zero before the result
@@ -246,23 +264,32 @@ def run_port(path, outdir, kw):
     return hpgq_torch.stats(path, outdir=outdir, device="cuda", **kw)
 
 
-def bench_corpus(tmp):
-    """The bench corpus (bench.corpus): its path and its records, written
-    once per run."""
-    from gen import make_fastq
-
-    path = os.path.join(tmp, "bench_1000000_100_rta3.fq")
+def cached_corpus(path, write):
+    """``(path, records)`` of a corpus that ``write(path)`` writes (and
+    returns the records of), written once per run."""
     if path not in _CORPUS:
         t0 = time.perf_counter()
-        records = make_fastq(path, 1_000_000, min_len=100, max_len=100,
-                             n_prob=0.005, seed=7, qual_bins=(2, 12, 23, 37))
+        records = write(path)
         _CORPUS[path] = records
-        say("corpus", "1,000,000 x 100 bp, %d bytes, written in %.1f s"
-            % (os.path.getsize(path), time.perf_counter() - t0))
+        say("corpus", "%s: %d reads, %d bytes, written in %.1f s"
+            % (os.path.basename(path), len(records), os.path.getsize(path),
+               time.perf_counter() - t0))
     return path, _CORPUS[path]
 
 
 _CORPUS = {}
+
+
+def bench_corpus(tmp, seed=7):
+    """The bench corpus (bench.corpus), 1,000,000 x 100 bp RTA3-binned;
+    ``seed=8`` makes the mate-2 file of phase 9."""
+    from gen import make_fastq
+
+    name = "bench_1000000_100_rta3%s.fq" % ("" if seed == 7 else "_s%d"
+                                             % seed)
+    return cached_corpus(os.path.join(tmp, name), lambda p: make_fastq(
+        p, 1_000_000, min_len=100, max_len=100, n_prob=0.005, seed=seed,
+        qual_bins=(2, 12, 23, 37)))
 
 
 def phase_end_to_end(tmp, smi):
@@ -272,8 +299,7 @@ def phase_end_to_end(tmp, smi):
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     path, records = bench_corpus(tmp)
-    out = os.path.join(tmp, "out")
-    os.makedirs(out)
+    out = tempfile.mkdtemp(dir=tmp)
 
     stats_cuda.LAUNCHES = 0
     step.WIRE_BATCHES.clear()
@@ -311,7 +337,7 @@ def phase_end_to_end(tmp, smi):
     say("e2e", "warm passes: %d reads in %s s; best %.0f reads/s, median "
         "%.0f reads/s, on %s" % (n, ", ".join("%.3f" % t for t in times),
                                  n / min(times), n / sorted(times)[1], smi))
-    return launches
+    return launches, got.num_passed
 
 
 def phase_tiers(tmp):
@@ -507,6 +533,11 @@ def long_read_corpus(path, n=10_000, n_huge=36, lengths=(2_000, 30_000),
     return records
 
 
+def long_corpus(tmp):
+    """Phase 8's long-read corpus (:func:`long_read_corpus`), cached."""
+    return cached_corpus(os.path.join(tmp, "long_reads.fq"), long_read_corpus)
+
+
 def long_read_runs(path, records, outdir, device):
     """``hpgq_torch.stats`` on ``device`` with ``kmers=True`` and with
     :data:`LONG_FILTER`, each held against the reference; returns
@@ -540,15 +571,11 @@ def long_read_runs(path, records, outdir, device):
 def phase_long_reads(tmp, smi):
     import torch
 
-    path = os.path.join(tmp, "long_reads.fq")
-    t0 = time.perf_counter()
-    records = long_read_corpus(path)
+    path, records = long_corpus(tmp)
     nbases = sum(len(r[1]) for r in records)
-    say("long", "%d reads, %d bases (longest %d), %d bytes, written in "
-        "%.1f s" % (len(records), nbases, max(len(r[1]) for r in records),
-                    os.path.getsize(path), time.perf_counter() - t0))
-    out = os.path.join(tmp, "long_out")
-    os.makedirs(out)
+    say("long", "%d reads, %d bases (longest %d)"
+        % (len(records), nbases, max(len(r[1]) for r in records)))
+    out = tempfile.mkdtemp(dir=tmp)
     t0 = time.perf_counter()
     runs = long_read_runs(path, records, out, "cuda")
     for run, (got, k1, k2, tiers, secs) in runs.items():
@@ -592,13 +619,180 @@ def phase_long_reads(tmp, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+def paired_runs(m1, recs1, m2, recs2, outdir, device):
+    """``hpgq_torch.stats(m1, m2)`` on ``device`` with :data:`BENCH_FILTER`
+    and with no filter, both mates held against
+    ``oracle.reference_paired_stats``; returns ``{run: (counters pair, K1
+    launches, wire tiers, seconds)}``."""
+    import torch
+
+    import hpgq_torch
+    from hpgq_torch.kernels import stats_cuda, step
+    from hpgq_torch.oracle import assert_counters_equal, reference_paired_stats
+
+    out = {}
+    for run, kw in (("filter", BENCH_FILTER), ("all", {})):
+        stats_cuda.LAUNCHES = 0
+        step.WIRE_BATCHES.clear()
+        t0 = time.perf_counter()
+        got = hpgq_torch.stats(m1, m2, outdir=outdir, device=device, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[run] = (got, stats_cuda.LAUNCHES, dict(step.WIRE_BATCHES), secs)
+        want = reference_paired_stats(recs1, recs2, **kw)
+        for mate, g, w in zip((1, 2), got, want):
+            assert_counters_equal(g, w, "paired %s, mate %d" % (run, mate))
+        if kw:
+            check(got[0].num_passed > 0 and got[0].num_failed > 0,
+                  "the paired filter passed %d and failed %d pairs"
+                  % (got[0].num_passed, got[0].num_failed))
+    return out
+
+
+def warm_passes(fn, n, unit, smi, label, phase):
+    """Three warm passes of ``fn``, printed as ``unit``/s, best and
+    median, then one profiled pass: the card's busy share."""
+    import torch
+
+    from hpgq_torch.breakdown import _device_ms, _fmt_busy
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    say(phase, "%s, warm passes: %d %s in %s s; best %.0f %s/s, median "
+        "%.0f %s/s, on %s" % (label, n, unit, ", ".join("%.3f" % t
+                                                       for t in times),
+                              n / min(times), unit, n / sorted(times)[1],
+                              unit, smi))
+    say(phase, "%s, one profiled pass: device %s"
+        % (label, _fmt_busy(_device_ms(fn, torch.device("cuda", 0)))))
+
+
+def phase_paired(tmp, smi):
+    """Paired stats over 1M pairs of 2 x 100 bp; returns K1 launches of
+    the filtered run."""
+    m1, recs1 = bench_corpus(tmp)
+    m2, recs2 = bench_corpus(tmp, seed=8)
+    t0 = time.perf_counter()
+    runs = paired_runs(m1, recs1, m2, recs2, tempfile.mkdtemp(dir=tmp),
+                       "cuda")
+    for run, ((c1, c2), k1, tiers, secs) in runs.items():
+        check(k1 > 0, "the paired %s run launched K1 no time" % run)
+        check(tiers == {"2u": k1}, "paired %s: every mate batch must ride "
+              "the 2u tier and launch K1 once (tiers %s, K1 launches %d)"
+              % (run, tiers, k1))
+        say("paired", "%s: cold pass %.3f s, K1 launches %d, wire tiers %s; "
+            "both mates == reference (%d pairs counted, %d passed, %d "
+            "failed)" % (run, secs, k1, tiers, c1.num_reads, c1.num_passed,
+                         c1.num_failed))
+    say("paired", "both runs and their references took %.1f s"
+        % (time.perf_counter() - t0))
+    warm_passes(lambda: run_port_paired(m1, m2, tempfile.mkdtemp(dir=tmp)),
+                len(recs1), "pairs", smi, "bench filter", "paired")
+    return runs["filter"][1]
+
+
+def run_port_paired(m1, m2, outdir):
+    import hpgq_torch
+
+    return hpgq_torch.stats(m1, m2, outdir=outdir, device="cuda",
+                            **BENCH_FILTER)
+
+
+# ---------------------------------------------------------------- phase 10
+
+def filter_runs(cases, outdir, device):
+    """``hpgq_torch.filter_reads`` on ``device`` for each case ``(label,
+    paths, record lists, thresholds)``: every output file must equal, byte
+    for byte, the records ``oracle.reference_verdicts`` selects (a pair
+    passes when both mates do).  Returns ``{label: (result, verdict
+    batches by (device, tier), seconds)}``."""
+    import hpgq_torch
+    from hpgq_torch.oracle import fastq_bytes, reference_verdicts
+    from hpgq_torch.pipeline import session
+
+    out = {}
+    for label, paths, recs, kw in cases:
+        session.FN_BATCHES.clear()
+        od = tempfile.mkdtemp(dir=outdir)
+        t0 = time.perf_counter()
+        res = hpgq_torch.filter_reads(*paths, outdir=od, device=device, **kw)
+        secs = time.perf_counter() - t0
+        out[label] = (res, dict(session.FN_BATCHES), secs)
+        ok = reference_verdicts(recs[0], **kw)
+        for r in recs[1:]:
+            ok &= reference_verdicts(r, **kw)
+        names = (("passed.fq", "failed.fq") if len(paths) == 1 else
+                 ("passed_1.fq", "passed_2.fq", "failed_1.fq", "failed_2.fq"))
+        sel = [ok] * len(paths) + [~ok] * len(paths)
+        for name, r, s in zip(names, list(recs) * 2, sel):
+            with open(os.path.join(od, name), "rb") as f:
+                check(f.read() == fastq_bytes(r, s), "%s: %s differs from "
+                      "the reference's selection" % (label, name))
+        check(res["num_passed"] == int(ok.sum())
+              and res["num_failed"] == int((~ok).sum()),
+              "%s: %d passed, %d failed; the reference passes %d of %d"
+              % (label, res["num_passed"], res["num_failed"], int(ok.sum()),
+                 len(ok)))
+    return out
+
+
+LONG_FILTER_PASSED = 5744  # what phase 8's filtered stats counts on this corpus
+
+
+def phase_filter(tmp, smi, se_passed=None):
+    """Single-end filter of the phase-4 corpus, paired filter of phase 9's
+    pairs, long-read filter of phase 8's corpus."""
+    m1, recs1 = bench_corpus(tmp)
+    m2, recs2 = bench_corpus(tmp, seed=8)
+    lpath, lrecs = long_corpus(tmp)
+    cases = [("single-end", (m1,), (recs1,), BENCH_FILTER),
+             ("paired", (m1, m2), (recs1, recs2), BENCH_FILTER),
+             ("long reads", (lpath,), (lrecs,), LONG_FILTER)]
+    want_tier = {"single-end": "2c", "paired": "2c", "long reads": "qn8"}
+    t0 = time.perf_counter()
+    runs = filter_runs(cases, tmp, "cuda")
+    for label, (res, batches, secs) in runs.items():
+        check(all(dev == "cuda" for dev, _ in batches),
+              "%s: a verdict ran off the card (%s)" % (label, batches))
+        check(batches.get(("cuda", want_tier[label]), 0) > 0,
+              "%s: the %s tier carried no batch (%s)"
+              % (label, want_tier[label], batches))
+        say("filter", "%s: cold pass %.3f s, verdict batches %s; every "
+            "output file == reference (%d passed, %d failed)"
+            % (label, secs, batches, res["num_passed"], res["num_failed"]))
+    if se_passed is not None:
+        check(runs["single-end"][0]["num_passed"] == se_passed,
+              "filter passed %d reads, phase 4's stats %d"
+              % (runs["single-end"][0]["num_passed"], se_passed))
+    check(runs["long reads"][0]["num_passed"] == LONG_FILTER_PASSED,
+          "the long-read filter passed %d reads, phase 8 %d"
+          % (runs["long reads"][0]["num_passed"], LONG_FILTER_PASSED))
+    say("filter", "three runs and their references took %.1f s"
+        % (time.perf_counter() - t0))
+    for label, paths, recs, kw in cases:
+        def one(paths=paths, kw=kw):
+            import hpgq_torch
+
+            hpgq_torch.filter_reads(*paths, outdir=tempfile.mkdtemp(dir=tmp),
+                                    device="cuda", **kw)
+        warm_passes(one, len(recs[0]), "pairs" if len(paths) == 2
+                    else "reads", smi, label, "filter")
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8",
-                    help="comma-separated phases to run (default 1-5, 7 "
-                         "and 8; 6, the stage breakdown, runs only when "
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10",
+                    help="comma-separated phases to run (default 1-5 and "
+                         "7-10; 6, the stage breakdown, runs only when "
                          "asked for; the card and the build always run)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -643,6 +837,7 @@ def main(argv=None):
                "hpgq_torch/kernels/csrc/stats_k2.cu",
                "hpgq/kernels/stats_pallas.py:281")
     tmp = tempfile.mkdtemp(prefix="hpgq_torch_smoke_")
+    se_passed = None
     try:
         if 3 in phases:
             err, ms, plain_ms = phase_kernel(dev)
@@ -651,11 +846,15 @@ def main(argv=None):
             err, ms, plain_ms = phase_k2(dev)
             k2.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
         if 4 in phases:
-            k1["launches"] = phase_end_to_end(tmp, smi)
+            k1["launches"], se_passed = phase_end_to_end(tmp, smi)
         if 5 in phases:
             phase_tiers(tmp)
         if 8 in phases:
             k2["launches"] = phase_long_reads(tmp, smi)
+        if 9 in phases:  # K1's launches over both of its paths
+            k1["launches"] = (k1["launches"] or 0) + phase_paired(tmp, smi)
+        if 10 in phases:
+            phase_filter(tmp, smi, se_passed)
         if 6 in phases:
             phase_breakdown(tmp, smi)
     finally:

@@ -6,10 +6,12 @@ kernel written by hand for Hopper (``hpgq_torch/kernels/csrc``).  Host
 layers without a jax import (reader, native packer, options, counters,
 report, checkpoint) are shared with ``hpgq``.
 
-Ported so far: single-end ``stats`` for reads of any length, with and
-without the inline filter and with ``--kmers`` (``python -m hpgq_torch
-stats ...`` or :func:`hpgq_torch.stats`).  The
-device is explicit: ``"cuda"`` by default, ``"cpu"`` only when asked for.
+Ported so far: ``stats`` for reads of any length, single-end or paired,
+with and without the inline filter and with ``--kmers`` (``python -m
+hpgq_torch stats ...`` or :func:`hpgq_torch.stats`), and ``filter``,
+single-end or paired (``python -m hpgq_torch filter ...`` or
+:func:`hpgq_torch.filter_reads`).  The device is explicit: ``"cuda"`` by
+default, ``"cpu"`` only when asked for.
 """
 
 __version__ = "0.1.0"
@@ -18,8 +20,8 @@ __version__ = "0.1.0"
 def __getattr__(name):
     """Lazy top-level API: ``import hpgq_torch`` loads no torch until a
     command is used."""
-    if name == "stats":
+    if name in ("stats", "filter_reads"):
         from . import api
 
-        return api.stats
+        return getattr(api, name)
     raise AttributeError(name)

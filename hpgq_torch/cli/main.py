@@ -1,10 +1,11 @@
-"""hpgq_torch command-line interface: ``python -m hpgq_torch stats ...``.
+"""hpgq_torch command-line interface: ``python -m hpgq_torch stats|filter``.
 
-The `stats` command takes ``hpgq``'s flags (the parser helpers of
-``hpgq.cli.main`` are reused, so the PARAMETERS and RESULTS blocks and the
-report files come out byte-for-byte as ``hpgq`` prints them) plus
-``--device`` (default ``cuda``).  The other commands are not ported yet
-and exit non-zero.
+The `stats` and `filter` commands take ``hpgq``'s flags (the parser
+helpers of ``hpgq.cli.main`` are reused, so the PARAMETERS and RESULTS
+blocks, the report files and the FASTQ outputs come out byte-for-byte as
+``hpgq`` writes them) plus ``--device`` (default ``cuda``).  The other
+commands, and the legacy single-binary flags, are not ported yet and exit
+non-zero.
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ from hpgq.cli.main import (
     _ns_to_opts,
     _results_banner,
 )
-from hpgq.options import StatsOptions, display, validate_common
+from hpgq.options import FilterOptions, StatsOptions, display, validate_common
 from hpgq.utils.timers import StageTimers
 
 from .. import __version__
 
-_NOT_PORTED = ("filter", "edit", "prepro", "cgr")
+_NOT_PORTED = ("edit", "prepro", "cgr")
 
 
 def usage(exec_name: str) -> str:
@@ -35,6 +36,8 @@ def usage(exec_name: str) -> str:
         "Usage: %s <command> [options]\n"
         "\n"
         "Command: stats\t\tstatistics summary (--device cuda|cpu)\n"
+        "         filter\tfilter reads by length, quality and N count "
+        "(--device cuda|cpu)\n"
         "\n"
         "Not ported yet (use hpgq): %s\n"
         % (exec_name, __version__, exec_name, ", ".join(_NOT_PORTED))
@@ -59,32 +62,45 @@ def _main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(usage(exec_name), end="")
         return -1
-    if argv[0] != "stats":
+    commands = {"stats": _stats, "filter": _filter}
+    if argv[0] not in commands:
         print("%s: command %r is not ported yet (ROADMAP.md queue 1); "
               "use hpgq" % (exec_name, argv[0]), file=sys.stderr)
         return -1
-    return _stats(argv[1:], exec_name)
+    return commands[argv[0]](argv[1:], exec_name)
 
 
-def _stats(rest, exec_name: str) -> int:
+def _parse(command: str, rest, exec_name: str, options_cls):
+    """Parse and validate a command's flags as ``hpgq`` does, print the
+    PARAMETERS block; returns (options, device).  The device is resolved
+    before anything is printed: no fallback."""
     from ..device import resolve_device
-    from ..pipeline.run import run_stats
 
-    parser = argparse.ArgumentParser(prog="%s stats" % exec_name)
+    parser = argparse.ArgumentParser(prog="%s %s" % (exec_name, command))
     _add_common(parser, with_encoding=True)
-    parser.add_argument("--kmers", dest="kmers_on", action="store_true",
-                        help="Enable k-mers analysis (5-mer)")
+    if command == "stats":
+        parser.add_argument("--kmers", dest="kmers_on", action="store_true",
+                            help="Enable k-mers analysis (5-mer)")
     parser.add_argument("--device", default="cuda",
                         help="Device to run on: cuda (default) or cpu")
     _add_legacy_filter_aliases(parser)
     ns = parser.parse_args(rest)
-    device = resolve_device(ns.device)  # before any output: no fallback
-    opts = _ns_to_opts(ns, StatsOptions)
-    opts.kmers_on = ns.kmers_on
+    device = resolve_device(ns.device)
+    opts = _ns_to_opts(ns, options_cls)
+    if command == "stats":
+        opts.kmers_on = ns.kmers_on
     validate_common(opts)
     display(opts)
+    return opts, device
+
+
+def _stats(rest, exec_name: str) -> int:
+    from ..pipeline.run import run_stats
+
+    opts, device = _parse("stats", rest, exec_name, StatsOptions)
     timers = StageTimers()
-    counters = run_stats(opts, timers, device=device)
+    result = run_stats(opts, timers, device=device)
+    counters = result[0] if isinstance(result, tuple) else result
     lines = ["Report files and images were stored in '%s' directory"
              % opts.out_dirname]
     if counters.filter_on:
@@ -98,6 +114,33 @@ def _stats(rest, exec_name: str) -> int:
             "\nFiltering: disabled",
             "\tSo, statistics were computed for the whole input file.",
         ]
+    return _done(lines, opts, timers)
+
+
+def _filter(rest, exec_name: str) -> int:
+    from ..pipeline.run import run_filter
+
+    opts, device = _parse("filter", rest, exec_name, FilterOptions)
+    timers = StageTimers()
+    res = run_filter(opts, timers, device=device)
+    if opts.paired_end:
+        lines = [
+            "Num. passed pairs: %d (%s, %s)"
+            % (res["num_passed"], res["passed_1"], res["passed_2"]),
+            "Num. failed pairs: %d (%s, %s)"
+            % (res["num_failed"], res["failed_1"], res["failed_2"]),
+        ]
+    else:
+        lines = [
+            "Num. passed reads: %d (%s)"
+            % (res["num_passed"], res["passed_filename"]),
+            "Num. failed reads: %d (%s)"
+            % (res["num_failed"], res["failed_filename"]),
+        ]
+    return _done(lines, opts, timers)
+
+
+def _done(lines, opts, timers) -> int:
     _results_banner(lines)
     if opts.time_on:
         timers.report()

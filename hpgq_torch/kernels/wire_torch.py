@@ -2,8 +2,9 @@
 
 Torch twins of ``hpgq.kernels.stats_jnp``'s ``_bit_fields``, ``_wire_tail``,
 ``wire_unbits``, ``_unbits6``, ``_unbits2q``, ``wire_unbits2c``,
-``wire_unbits2u``, ``pad_wire_cols``, ``bitwire_kind`` and
-``bitwire_logical_len`` (``stats_jnp.py:469-729``).  The host packers are
+``wire_unbits2u``, ``pad_wire_cols``, ``bitwire_kind``,
+``bitwire_logical_len``, ``qnwire_logical_len`` and ``wire_unqn8``
+(``stats_jnp.py:469-729``).  The host packers are
 shared (``hpgq.io.packer`` / ``hpgq.io.native``); these functions take
 their buffers on any device and return ``(codes int8, quals uint8,
 lens int32, valid bool)`` byte-equal to ``hpgq.io.packer.pack_block``.
@@ -183,6 +184,24 @@ def wire_unbits2u(buf, exc, pal, n_valid: int, *, L: int):
     zero = torch.zeros((), dtype=torch.uint8, device=buf.device)
     quals = torch.where(mask, q, zero)
     codes = torch.where(mask, codes, zero + 5).to(torch.int8)
+    return codes, quals, lens, valid
+
+
+def qnwire_logical_len(W: int) -> int:
+    """Logical L of a qn8 wire row (W = L + 8)."""
+    return W - 8
+
+
+def wire_unqn8(buf):
+    """Decode a qn8 buffer (``hpgq.io.packer.pack_block_qnwire``): one byte
+    per base, ``(qual & 0x7F) | (is_N << 7)``, then the row tail.  Codes
+    come out as 4 (N) or 0: all the verdict reads of the sequence is its N
+    count, so never feed these codes to a stats step."""
+    L = qnwire_logical_len(buf.shape[1])
+    body = buf[:, :L]
+    quals = body & 0x7F
+    codes = ((body >> 7) << 2).to(torch.int8)
+    lens, valid = _wire_tail(buf, L)
     return codes, quals, lens, valid
 
 

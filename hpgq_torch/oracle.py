@@ -1,4 +1,5 @@
-"""Plain numpy reference of single-end ``stats`` with the inline filter.
+"""Plain numpy reference of ``stats`` (single-end and paired, with the
+inline filter) and of the ``filter`` verdict.
 
 It holds the port's results against the reads as they were generated: it
 takes the ``(name, seq, qual)`` records that ``tests/gen.make_records``
@@ -10,6 +11,8 @@ semantics are those of ``hpgq/oracle/baseline.py`` (``block_stats``,
 
     want = reference_stats(records, read_quality_range=(20, 60), max_N=2)
     assert_counters_equal(got, want, "label")
+    ok = reference_verdicts(records, read_quality_range=(20, 60), max_N=2)
+    passed_fq = fastq_bytes(records, ok)
 
 Reads are taken in order of length, in chunks of about :data:`CHUNK_ELEMS`
 padded bases, so a few long reads do not widen every chunk.
@@ -151,6 +154,84 @@ def _kmers(codes, lens):
     return np.bincount(kc[ok], minlength=NUM_KMERS * W).reshape(NUM_KMERS, W)
 
 
+def _thresholds(read_length_range=None, read_quality_range=None,
+                max_N=None, max_out_of_quality=None, left=None, right=None):
+    """(filter on?, thresholds) of the keywords of :func:`reference_stats`;
+    with no threshold set the filter is off."""
+    filter_on = any(v is not None for v in (
+        read_length_range, read_quality_range, max_N, max_out_of_quality,
+        left, right))
+    return filter_on, {
+        "length": _bounds(read_length_range),
+        "quality": _bounds(read_quality_range),
+        "max_oq": MAX_VALUE if max_out_of_quality is None
+        else int(max_out_of_quality),
+        "left": _window(left), "right": _window(right),
+        "max_N": MAX_VALUE if max_N is None else int(max_N),
+    }
+
+
+def _chunks(records, phred, chunk):
+    """(record indices, codes, quals, lens, mask) over chunks of reads in
+    order of length, each no more than ``chunk`` padded bases."""
+    lengths = np.fromiter((len(r[1]) for r in records), dtype=np.int64,
+                          count=len(records))
+    order = np.argsort(lengths, kind="stable")
+    at = 0
+    while at < len(records):
+        # the rows of a chunk are no longer than its last (longest) read
+        end = at + 1
+        while (end < len(records)
+               and (end + 1 - at) * max(int(lengths[order[end]]), 1) <= chunk):
+            end += 1
+        idx = order[at:end]
+        yield (idx,) + _padded([records[i] for i in idx], phred)
+        at = end
+
+
+def reference_verdicts(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
+                       **thresholds) -> np.ndarray:
+    """The ``filter`` verdict of each record, a bool array in input order
+    (all True when no threshold is set).  The thresholds are the keywords
+    of :func:`reference_stats`."""
+    filter_on, thr = _thresholds(**thresholds)
+    ok = np.ones(len(records), bool)
+    if filter_on:
+        for idx, codes, quals, lens, mask in _chunks(records, phred, chunk):
+            ok[idx] = _verdicts(codes, quals, lens, mask, phred, thr)
+    return ok
+
+
+def fastq_bytes(records, select) -> bytes:
+    """The records where ``select`` is True, in input order, as the FASTQ
+    text ``tests/gen.write_fastq`` writes (``name\\nseq\\n+\\nqual\\n``):
+    what a ``filter`` output file of those records must hold."""
+    return b"".join(b"%s\n%s\n+\n%s\n" % r
+                    for r, s in zip(records, select) if s)
+
+
+def reference_paired_stats(records1, records2, phred: int = 33,
+                           chunk: int = CHUNK_ELEMS, kmers: bool = False,
+                           **thresholds):
+    """Counters of paired ``stats`` for both mates, ``(c1, c2)``: each
+    mate's statistics over the pairs where both mates pass; with a filter,
+    ``num_passed``/``num_failed`` count pairs and are the same in both."""
+    if len(records1) != len(records2):
+        raise ValueError("mates hold %d and %d records"
+                         % (len(records1), len(records2)))
+    filter_on, _ = _thresholds(**thresholds)
+    sel = (reference_verdicts(records1, phred, chunk, **thresholds)
+           & reference_verdicts(records2, phred, chunk, **thresholds))
+    out = []
+    for records in (records1, records2):
+        c = reference_stats([r for r, s in zip(records, sel) if s], phred,
+                            chunk, kmers=kmers)
+        if filter_on:
+            c.num_passed, c.num_failed = int(sel.sum()), int((~sel).sum())
+        out.append(c)
+    return tuple(out)
+
+
 def reference_stats(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
                     read_length_range=None, read_quality_range=None,
                     max_N=None, max_out_of_quality=None, left=None,
@@ -162,21 +243,9 @@ def reference_stats(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
     is off: every read counts, and the passed/failed counts stay 0.
     ``kmers`` adds ``kmer_counts`` and ``kmer_counts_by_pos``.  ``chunk``
     bounds the padded bases (rows x width) of one chunk."""
-    filter_on = any(v is not None for v in (
-        read_length_range, read_quality_range, max_N, max_out_of_quality,
-        left, right))
-    thr = {
-        "length": _bounds(read_length_range),
-        "quality": _bounds(read_quality_range),
-        "max_oq": MAX_VALUE if max_out_of_quality is None
-        else int(max_out_of_quality),
-        "left": _window(left), "right": _window(right),
-        "max_N": MAX_VALUE if max_N is None else int(max_N),
-    }
-    lengths = np.fromiter((len(r[1]) for r in records), dtype=np.int64,
-                          count=len(records))
-    order = np.argsort(lengths, kind="stable")
-    width = int(lengths.max()) if len(records) else 0
+    filter_on, thr = _thresholds(read_length_range, read_quality_range,
+                                 max_N, max_out_of_quality, left, right)
+    width = max((len(r[1]) for r in records), default=0)
     c = ReferenceCounters(
         min_length=MAX_VALUE,
         length_hist=np.zeros(width + 1, np.int64),
@@ -187,16 +256,7 @@ def reference_stats(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
         base_per_nt=np.zeros((5, width), np.int64))
     if kmers:
         c.kmer_counts_by_pos = np.zeros((NUM_KMERS, width), np.int64)
-    at = 0
-    while at < len(records):
-        # the rows of a chunk are no longer than its last (longest) read
-        end = at + 1
-        while (end < len(records)
-               and (end + 1 - at) * max(int(lengths[order[end]]), 1) <= chunk):
-            end += 1
-        codes, quals, lens, mask = _padded(
-            [records[i] for i in order[at:end]], phred)
-        at = end
+    for _, codes, quals, lens, mask in _chunks(records, phred, chunk):
         ok = _verdicts(codes, quals, lens, mask, phred, thr) if filter_on \
             else np.ones(lens.shape, bool)
         c.num_reads += int(ok.sum())

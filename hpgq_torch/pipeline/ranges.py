@@ -1,8 +1,10 @@
 """Record-aligned byte ranges of a FASTQ file, for concurrent shard readers.
 
-Jax-free copies of ``_align_to_record``, ``range_splittable`` and
-``split_byte_ranges`` from ``hpgq/dist/mesh.py`` (``:325-367``,
-``:477-504``), whose module imports jax at load time.
+Jax-free copies of ``_align_to_record``, ``range_splittable``,
+``_open_logical``, ``count_newlines_in_range``, ``record_offsets``,
+``split_paired_ranges`` and ``split_byte_ranges`` from
+``hpgq/dist/mesh.py`` (``:325-504``), whose module imports jax at load
+time.
 """
 
 from __future__ import annotations
@@ -50,20 +52,103 @@ def range_splittable(path: str) -> bool:
     return is_bgzf(path)
 
 
-def split_byte_ranges(path: str, n_shards: int):
-    """[(start, end)] record-aligned byte ranges covering a FASTQ file;
-    offsets are logical (decompressed) for BGZF inputs (copy of
-    ``hpgq/dist/mesh.py:477-504``)."""
+def _open_logical(path: str):
+    """(file-like, logical_size): a ``BgzfFile`` for BGZF input, the plain
+    file otherwise; offsets are decompressed-stream offsets either way."""
     with open(path, "rb") as probe:
         gz = probe.read(2) == b"\x1f\x8b"
     if gz:
         from hpgq.io.bgzf import BgzfFile
 
         f = BgzfFile(path)
-        size = f.logical_size
-    else:
-        f = open(path, "rb")
-        size = os.path.getsize(path)
+        return f, f.logical_size
+    return open(path, "rb"), os.path.getsize(path)
+
+
+def count_newlines_in_range(path: str, start: int, end: int) -> int:
+    """Newlines in the logical byte range ``[start, end)``."""
+    from hpgq.io.fastq import _find_newlines
+
+    f, _ = _open_logical(path)
+    try:
+        f.seek(start)
+        total = 0
+        left = end - start
+        while left > 0:
+            data = f.read(min(left, 16 << 20))
+            if not data:
+                break
+            total += int(len(_find_newlines(data)))
+            left -= len(data)
+        return total
+    finally:
+        f.close()
+
+
+def record_offsets(path: str, record_indices) -> "list[int]":
+    """Logical byte offset of the start of each requested record, by one
+    streaming newline scan; indices past the end map to the file's end."""
+    from hpgq.io.fastq import _find_newlines
+
+    remaining = sorted({int(r) for r in record_indices if int(r) != 0})
+    out = {0: 0}
+    if remaining:
+        f, _ = _open_logical(path)
+        try:
+            nl_seen = base = ri = 0
+            while ri < len(remaining):
+                data = f.read(16 << 20)
+                if not data:
+                    for r in remaining[ri:]:
+                        out[r] = base
+                    break
+                nl = _find_newlines(data)
+                while ri < len(remaining):
+                    need = remaining[ri] * 4  # the newline ending record r-1
+                    if need > nl_seen + len(nl):
+                        break
+                    out[remaining[ri]] = base + int(nl[need - nl_seen - 1]) + 1
+                    ri += 1
+                nl_seen += len(nl)
+                base += len(data)
+        finally:
+            f.close()
+    return [out[int(r)] for r in record_indices]
+
+
+def split_paired_ranges(path1: str, path2: str, n_shards: int):
+    """``[((s1, e1), (s2, e2)), ...]``: shard i covers the same record
+    indices in both mate files.  Mate 1 is cut at record-aligned byte
+    fractions; mate 2's cuts come from counting mate 1's records."""
+    r1 = split_byte_ranges(path1, n_shards)
+    counts = [count_newlines_in_range(path1, s, e) // 4 for s, e in r1]
+    # a legal FASTQ may lack the final newline: its last shard then holds
+    # 4N-1 newlines, and newlines // 4 would drop the final record and
+    # misalign every mate-2 cut after it
+    f, size = _open_logical(path1)
+    try:
+        if size:
+            f.seek(size - 1)
+            if f.read(1) != b"\n":
+                # credit the last NONEMPTY shard (tiny files collapse
+                # trailing shards to empty (size, size) ranges)
+                for i in range(n_shards - 1, -1, -1):
+                    if r1[i][0] < r1[i][1]:
+                        counts[i] += 1
+                        break
+    finally:
+        f.close()
+    prefix = [0]
+    for c in counts:
+        prefix.append(prefix[-1] + c)
+    offs2 = record_offsets(path2, prefix)
+    return list(zip(r1, [(offs2[i], offs2[i + 1]) for i in range(n_shards)]))
+
+
+def split_byte_ranges(path: str, n_shards: int):
+    """[(start, end)] record-aligned byte ranges covering a FASTQ file;
+    offsets are logical (decompressed) for BGZF inputs."""
+    f, size = _open_logical(path)
     try:
         cuts = [0]
         for i in range(1, n_shards):

@@ -20,7 +20,13 @@ from hpgq.io.fastq import FastqReader
 from hpgq.io.packer import pack_block
 from hpgq.oracle import baseline as ob
 from hpgq_torch.api import filter_criteria
-from hpgq_torch.oracle import assert_counters_equal, reference_stats
+from hpgq_torch.oracle import (
+    assert_counters_equal,
+    fastq_bytes,
+    reference_paired_stats,
+    reference_stats,
+    reference_verdicts,
+)
 
 CORPORA = {
     "golden": dict(n=400, min_len=0, max_len=60, n_prob=0.05,
@@ -140,3 +146,66 @@ def test_reference_counts_reads_over_100000_without_filter(tmp_path):
     assert_counters_equal(got, want, "over 100000", rel_quality=1e-9)
     filtered = reference_stats(records, max_N=5)
     assert (filtered.num_reads, filtered.num_failed) == (0, 3)
+
+
+@pytest.mark.parametrize("setting", list(FILTERS))
+@pytest.mark.parametrize("corpus", list(CORPORA))
+def test_reference_verdicts_equal_block_verdicts(tmp_path, corpus, setting):
+    """``reference_verdicts`` (in input order, computed in length-ordered
+    chunks) equals ``hpgq.oracle.baseline.block_verdicts`` over the same
+    records read back through the shared reader and packer."""
+    path, records = _records(tmp_path, corpus)
+    kw = FILTERS[setting]
+    want = []
+    crit = filter_criteria(**kw)
+    with FastqReader(path, batch_size=512) as rd:
+        for block in rd:
+            codes, quals, lens, valid = pack_block(block)
+            ok = valid if crit is None else \
+                ob.block_verdicts(codes, quals, lens, crit, 33) & valid
+            want.append(ok[:block.num_reads])
+    want = np.concatenate(want)
+    for chunk in (16384, 1 << 26):
+        got = reference_verdicts(records, chunk=chunk, **kw)
+        assert got.dtype == bool and got.shape == (len(records),)
+        np.testing.assert_array_equal(got, want)
+    if setting == "bench" and corpus != "long":
+        assert 0 < int(want.sum()) < len(records)
+
+
+@pytest.mark.parametrize("setting", ["none", "bench", "kmers"])
+def test_reference_paired_stats_equal_hpgq(tmp_path, setting):
+    """``reference_paired_stats`` equals ``hpgq``'s paired ``stats`` on the
+    CPU: each mate's statistics over the pairs where both mates pass,
+    passed/failed counted per pair in both counters; ``acc_quality`` to
+    1e-6 relative (``hpgq`` sums f32 means in f32)."""
+    import hpgq
+
+    p1, r1 = _records(tmp_path, "varlong")
+    p2 = str(tmp_path / "mate2.fq")
+    kw = dict(CORPORA["varlong"], seed=16)
+    r2 = make_fastq(p2, kw.pop("n"), **kw)
+    th = {"none": {}, "bench": BENCH, "kmers": BENCH}[setting]
+    kmers = setting == "kmers"
+    want = hpgq.stats(p1, p2, outdir=str(tmp_path), kmers=kmers, **th)
+    got = reference_paired_stats(r1, r2, kmers=kmers, **th)
+    for mate, g, w in zip((1, 2), got, want):  # hpgq sums f32 on device
+        assert_counters_equal(g, w, "mate %d" % mate, rel_quality=1e-6)
+    if th:
+        assert 0 < got[0].num_passed < len(r1)
+        assert got[0].num_passed + got[0].num_failed == len(r1)
+        assert (got[1].num_passed, got[1].num_failed) == \
+            (got[0].num_passed, got[0].num_failed)
+    with pytest.raises(ValueError, match="mates hold"):
+        reference_paired_stats(r1, r2[:-1])
+
+
+def test_fastq_bytes_is_the_written_file(tmp_path):
+    """All records selected give the generated file's bytes; a selection
+    keeps input order."""
+    path, records = _records(tmp_path, "golden")
+    with open(path, "rb") as f:
+        assert fastq_bytes(records, np.ones(len(records), bool)) == f.read()
+    sel = np.arange(len(records)) % 3 == 1
+    assert fastq_bytes(records, sel) == b"".join(
+        b"%s\n%s\n+\n%s\n" % records[i] for i in np.flatnonzero(sel))

@@ -90,32 +90,49 @@ def _same_report(a: bytes, b: bytes, name: str):
         assert abs(qx - qy) <= 1e-3 * max(abs(qy), 1), (name, x, y)
 
 
-def _run_cli(fn, args, outdir):
+def _run_cli(fn, args, outdir, command="stats"):
     os.makedirs(outdir, exist_ok=True)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = fn(["stats", "-o", outdir] + args)
+        rc = fn([command, "-o", outdir] + args)
     assert rc == 0
     return buf.getvalue()
 
 
-def _assert_cli_identical(tmp_path, path, filtered, extra=()):
-    args = ["-f", path, "--log-file", str(tmp_path / "log")] + list(extra)
+def _inputs(path):
+    """CLI input flags of one file or of a ``(mate 1, mate 2)`` pair."""
+    if isinstance(path, tuple):
+        return ["--fq1", path[0], "--fq2", path[1]]
+    return ["-f", path]
+
+
+def _assert_cli_identical(tmp_path, path, filtered, extra=(),
+                          command="stats"):
+    """``hpgq`` and ``hpgq_torch --device cpu`` on the same input and flags:
+    the same console output and byte-identical output trees (after the
+    normalisation above).  Returns the output file names."""
+    args = _inputs(path) + ["--log-file", str(tmp_path / "log")] + list(extra)
     args += FILTER_FLAGS if filtered else []
     ref_dir, port_dir = str(tmp_path / "ref"), str(tmp_path / "port")
-    out_ref = _run_cli(hpgq_main, args, ref_dir)
-    out_port = _run_cli(port_main, args + ["--device", "cpu"], port_dir)
+    out_ref = _run_cli(hpgq_main, args, ref_dir, command)
+    out_port = _run_cli(port_main, args + ["--device", "cpu"], port_dir,
+                        command)
     assert out_port.replace(port_dir, "<OUTDIR>") == \
         out_ref.replace(ref_dir, "<OUTDIR>")
     names = sorted(os.listdir(ref_dir))
     assert sorted(os.listdir(port_dir)) == names
-    assert any(n.endswith(".summary.txt") for n in names)
     for name in names:
         with open(os.path.join(ref_dir, name), "rb") as f:
             a = _normalize(f.read(), ref_dir)
         with open(os.path.join(port_dir, name), "rb") as f:
             b = _normalize(f.read(), port_dir)
-        _same_report(b, a, name)
+        if command == "stats":
+            _same_report(b, a, name)
+        else:
+            assert a == b, name
+    if command == "stats":
+        assert any(n.endswith(".summary.txt") for n in names)
+    return names
 
 
 @pytest.mark.parametrize("filtered", [False, True], ids=["all", "filter"])
@@ -395,6 +412,25 @@ lrec = chip_smoke.long_read_corpus(lpath, n=30, n_huge=2,
 runs = chip_smoke.long_read_runs(lpath, lrec, outdir, "cpu")
 assert runs["kmers"][0].kmer_counts.sum() > 0
 assert runs["kmers"][0].max_length > 8000, runs["kmers"][0].max_length
+# phase 9 small: paired stats against the paired reference, both on 2u
+m2 = os.path.join(outdir, "m2.fq")
+rec2 = gen.make_fastq(m2, 3000, min_len=100, max_len=100, n_prob=0.01,
+                      seed=10, qual_bins=(2, 12, 23, 37))
+pruns = chip_smoke.paired_runs(path, records, m2, rec2, outdir, "cpu")
+for run, (pair, k1, tiers, _) in pruns.items():
+    assert set(tiers) == {"2u"} and k1 == 0, (run, tiers, k1)
+assert pruns["filter"][0][0].num_passed > 0
+# phase 10 small: every filter output equals the reference's selection
+lkw = dict(read_length_range=(3000, 100000), read_quality_range=(10, 60),
+           max_N=20)
+fruns = chip_smoke.filter_runs(
+    [("single-end", (path,), (records,), chip_smoke.BENCH_FILTER),
+     ("paired", (path, m2), (records, rec2), chip_smoke.BENCH_FILTER),
+     ("long reads", (lpath,), (lrec,), lkw)], outdir, "cpu")
+tiers = {label: set(b) for label, (_, b, _) in fruns.items()}
+assert tiers == {"single-end": {("cpu", "2c")}, "paired": {("cpu", "2c")},
+                 "long reads": {("cpu", "qn8")}}, tiers
+assert 0 < fruns["long reads"][0]["num_passed"] < len(lrec)
 print("ok", len(names))
 """
 
@@ -404,8 +440,9 @@ def test_imports_load_no_jax(tmp_path):
     of ``hpgq`` directly; every module of the port and every ``hpgq``
     module the port imports anywhere (also inside functions) loads; and
     chip_smoke's end-to-end check (the bench filter over 2u-wire batches,
-    held against ``hpgq_torch.oracle``) and its long-read check (k-mers
-    and a long-read filter, small) run on the CPU."""
+    held against ``hpgq_torch.oracle``), its long-read check (k-mers and
+    a long-read filter), its paired-stats check (phase 9) and its filter
+    check (phase 10) run small on the CPU."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, REPO, str(tmp_path / "in.fq"),
          str(tmp_path)], capture_output=True, text=True, cwd=str(tmp_path),
@@ -456,7 +493,7 @@ def test_cuda_request_raises_here(tmp_path, capsys):
     assert not any(n.endswith(".summary.txt") for n in os.listdir(tmp_path))
 
 
-@pytest.mark.parametrize("command", ["filter", "edit", "prepro", "cgr"])
+@pytest.mark.parametrize("command", ["edit", "prepro", "cgr"])
 def test_unported_commands_exit_nonzero(tmp_path, capsys, command):
     path = _corpus(tmp_path, "golden")
     rc = port_main([command, "-f", path, "-o", str(tmp_path)])
@@ -465,28 +502,14 @@ def test_unported_commands_exit_nonzero(tmp_path, capsys, command):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(in_path2="mate2.fq"), "paired-end"),
     (dict(sharded=True), "--sharded"),
-], ids=["paired", "sharded"])
+], ids=["sharded"])
 def test_unported_options_raise(tmp_path, kw, what):
     path = _corpus(tmp_path, "golden")
-    if "in_path2" in kw:
-        kw = dict(in_path2=path)
     import hpgq_torch
 
     with pytest.raises(NotImplementedError, match=what):
         hpgq_torch.stats(path, outdir=str(tmp_path), device="cpu", **kw)
-
-
-def test_kmers_with_paired_input_raises(tmp_path):
-    """--kmers is ported for single-end input only: with a mate file it
-    still raises, naming paired input (ROADMAP queue 1 item 7)."""
-    import hpgq_torch
-
-    path = _corpus(tmp_path, "golden")
-    with pytest.raises(NotImplementedError, match="paired-end"):
-        hpgq_torch.stats(path, in_path2=path, outdir=str(tmp_path),
-                         device="cpu", kmers=True)
 
 
 @pytest.mark.parametrize("filtered", [False, True], ids=["all", "filter"])
@@ -564,3 +587,194 @@ def test_short_read_batches_keep_bucket_rows(tmp_path, monkeypatch, wire):
         assert packed[0][1].shape[0] == rows
     else:
         assert packed[0].shape == (rows, 128)
+
+
+# ------------------------------------------------------------ paired stats
+
+BINS = (2, 12, 23, 37)
+PAIRED_MATES = {
+    # both mates on the 2u tier (under HPGQ_WIRE=bitpack), 100 and 96 bp
+    "2u+2u": (dict(n=900, min_len=100, max_len=100, n_prob=0.01, seed=41,
+                   qual_bins=BINS),
+              dict(n=900, min_len=96, max_len=96, n_prob=0.01, seed=42,
+                   qual_bins=BINS)),
+    # mate 1 on 2u, mate 2 variable and unbinned over two length buckets
+    "2u+varlen": (dict(n=900, min_len=100, max_len=100, n_prob=0.01,
+                       seed=43, qual_bins=BINS),
+                  dict(n=900, min_len=60, max_len=190, n_prob=0.01,
+                       seed=44)),
+}
+
+
+def _pair(tmp_path, name):
+    out = []
+    for i, kw in enumerate(PAIRED_MATES[name], 1):
+        kw = dict(kw)
+        out.append(str(tmp_path / ("m%d.fq" % i)))
+        make_fastq(out[-1], kw.pop("n"), **kw)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["all", "filter"])
+@pytest.mark.parametrize("wire", ["off", "bitpack"])
+@pytest.mark.parametrize("mates", list(PAIRED_MATES))
+def test_paired_cli_output_identical_to_hpgq(tmp_path, monkeypatch, mates,
+                                             wire, filtered):
+    """Paired ``stats``: the console and both mates' report sets
+    byte-identical to ``hpgq``'s; the mates may ride different tiers."""
+    from hpgq_torch.kernels import step
+
+    monkeypatch.setenv("HPGQ_WIRE", wire)
+    step.WIRE_BATCHES.clear()
+    names = _assert_cli_identical(tmp_path, _pair(tmp_path, mates), filtered)
+    for m in ("m1.fq", "m2.fq"):
+        assert m + ".summary.txt" in names
+    tiers = set(step.WIRE_BATCHES)
+    if wire == "off":
+        assert tiers == {"plain"}
+    elif mates == "2u+2u":
+        assert tiers == {"2u"}
+    else:
+        assert "2u" in tiers and len(tiers) > 1
+
+
+def test_paired_cli_kmers_identical_to_hpgq(tmp_path, monkeypatch):
+    """Paired ``--kmers`` with the filter: every k-mer report of both mates
+    byte-identical to ``hpgq``'s (the k-mers ride on the pair selection)."""
+    monkeypatch.setenv("HPGQ_WIRE", "bitpack")
+    names = _assert_cli_identical(tmp_path, _pair(tmp_path, "2u+varlen"),
+                                  True, ["--kmers"])
+    for m in ("m1.fq", "m2.fq"):
+        assert m + ".kmers.txt" in names
+
+
+def _paired_api(p1, p2, **kw):
+    import hpgq_torch
+
+    kw = dict(dict(read_length_range=(45, 140), read_quality_range=(15, 60),
+                   max_N=2), **kw)
+    return hpgq_torch.stats(p1, p2, outdir=os.path.dirname(p1),
+                            device="cpu", report=False, **kw)
+
+
+def test_paired_blocks_reslice_on_uneven_chunks(tmp_path, monkeypatch):
+    """Mate files with different byte layouts give the readers blocks of
+    different sizes (tiny chunks forced); the pairs re-slice to common
+    record ranges: paired stats equal ``hpgq``'s, and paired filter
+    outputs pair up line for line (``tests/test_cli.py:247``)."""
+    import hpgq
+    import hpgq.io.fastq as fastq_mod
+    import hpgq_torch
+    from gen import make_records, write_fastq
+
+    n = 400
+    r1 = make_records(n, min_len=60, max_len=60, seed=1)
+    r2 = [(b"@mate2_" + b"x" * 60 + b"_%d" % i, s, q)
+          for i, (_, s, q) in enumerate(make_records(n, min_len=90,
+                                                     max_len=90, seed=2))]
+    f1, f2 = str(tmp_path / "r1.fq"), str(tmp_path / "r2.fq")
+    write_fastq(f1, r1)
+    write_fastq(f2, r2)
+    monkeypatch.setattr(fastq_mod, "_CHUNK", 4096)
+    got = _paired_api(f1, f2, batch_size=64)
+    want = hpgq.stats(f1, f2, outdir=str(tmp_path / "ref"), batch_size=64,
+                      read_length_range=(45, 140),
+                      read_quality_range=(15, 60), max_N=2)
+    for g, w in zip(got, want):
+        assert g.equals(w)
+    assert got[0].num_passed + got[0].num_failed == n
+    res = hpgq_torch.filter_reads(f1, f2, outdir=str(tmp_path / "out"),
+                                  batch_size=64, read_quality_range=(15, 45),
+                                  device="cpu")
+    assert res["num_passed"] + res["num_failed"] == n
+    for kind in ("passed", "failed"):
+        counts = []
+        for m in (1, 2):
+            with open(res["%s_%d" % (kind, m)], "rb") as f:
+                counts.append(f.read().count(b"\n") // 4)
+        assert counts[0] == counts[1] == res["num_" + kind]
+
+
+def test_paired_mismatched_record_counts_raise(tmp_path):
+    p1, _ = _pair(tmp_path, "2u+2u")
+    short = str(tmp_path / "short.fq")
+    make_fastq(short, 899, min_len=96, max_len=96, seed=42)
+    with pytest.raises(ValueError, match="mismatched record counts"):
+        _paired_api(p1, short)
+
+
+def _paired_ck_opts(p1, p2, ck):
+    """Paired stats options with a checkpoint every 2 pair batches of 200."""
+    from hpgq.api import _common, _criteria
+    from hpgq.options import StatsOptions
+
+    opts = _common(StatsOptions(), p1, p2, os.path.dirname(p1), "phred33",
+                   200, ck, False)
+    opts.filter_on = _criteria(opts, (45, 140), (15, 60), 2, None, None,
+                               None)
+    opts.checkpoint_every = 2
+    return opts
+
+
+def test_paired_checkpoint_resume(tmp_path, monkeypatch):
+    """A paired run killed after its second checkpoint resumes from it and
+    ends with both mates' counters of an uninterrupted run.  The
+    checkpoint carries ``hpgq``'s key, so ``hpgq`` would resume it too."""
+    from hpgq.pipeline.run import _stats_config_key
+    from hpgq.utils.checkpoint import load_counters_checkpoint
+
+    p1, p2 = _pair(tmp_path, "2u+varlen")
+    ck = str(tmp_path / "ck.npz")
+    want = _paired_api(p1, p2, batch_size=200)
+    opts = _paired_ck_opts(p1, p2, ck)
+    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(4))
+    with pytest.raises(_Killed):
+        prun.run_stats(opts, report=False, device="cpu")
+    monkeypatch.setattr(prun, "FastqReader", FastqReader)
+    key = _stats_config_key(opts, opts.criteria) + "|paired:%s" \
+        % os.path.abspath(p2)
+    part, offset, extra = load_counters_checkpoint(ck, key)
+    assert part.num_passed + part.num_failed == 4 * 200 and offset > 0
+    assert int(extra["offset2"]) > 0
+    got = prun.run_stats(_paired_ck_opts(p1, p2, ck), report=False,
+                         device="cpu")
+    for g, w in zip(got, want):
+        assert g.equals(w)
+    assert not os.path.exists(ck)
+
+
+def test_paired_parallel_shards_match_serial(tmp_path, monkeypatch):
+    """Paired stats over 3 shard pairs (forced on the CPU) merge to the
+    serial counters of both mates."""
+    p1, p2 = _pair(tmp_path, "2u+varlen")
+    want = _paired_api(p1, p2, batch_size=100)
+    monkeypatch.setattr(prun, "_PARALLEL_MIN_BYTES", 0)
+    monkeypatch.setenv("HPGQ_READ_SHARDS", "3")
+    calls = []
+    real = prun._run_stats_parallel_paired
+    monkeypatch.setattr(prun, "_run_stats_parallel_paired",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = _paired_api(p1, p2, batch_size=100)
+    assert calls == [1]
+    for g, w in zip(got, want):
+        assert g.equals(w)
+
+
+def test_parallel_eligibility_checks_both_mates(tmp_path, monkeypatch):
+    """Shard readers need byte-seekable input: a plain-gzip mate 2 keeps a
+    paired run serial even when mate 1 could be split (the port used to
+    look at mate 1 only)."""
+    from hpgq.options import StatsOptions
+
+    monkeypatch.setattr(prun, "_PARALLEL_MIN_BYTES", 0)
+    monkeypatch.setenv("HPGQ_READ_SHARDS", "3")
+    p1, _ = _pair(tmp_path, "2u+2u")
+    gz = str(tmp_path / "m2.fq.gz")
+    make_fastq(gz, 900, min_len=96, max_len=96, seed=42)
+    opts = StatsOptions(in_filename=p1)
+    cpu = torch.device("cpu")
+    assert prun._output_parallel_eligible(opts, cpu)
+    opts.in_filename2 = gz
+    assert not prun._output_parallel_eligible(opts, cpu)
+    opts.in_filename2 = str(tmp_path / "missing.fq")
+    assert not prun._output_parallel_eligible(opts, cpu)

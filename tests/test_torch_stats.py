@@ -488,3 +488,172 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         stats_cuda.batch_partials_cuda_long(*t, 8192, PHRED33)
     with pytest.raises(ValueError, match="K1 takes lcap <= 4096"):
         stats_cuda.batch_partials_cuda(*t, 4224, PHRED33)
+
+
+# ------------------------------------------------------------ paired steps
+
+PAIR_CRITS = {"none": None, "bench": CRITS["bench"],
+              "all": CRITS["qwindow"]}  # every check, quality window too
+PAIR_MATES = {  # the two mates' corpora for each wire
+    "plain": (dict(min_len=41, max_len=127, seed=31),
+              dict(min_len=41, max_len=127, seed=32,
+                   qual_bins=(2, 12, 23, 37))),
+    "bitpack": (dict(min_len=41, max_len=127, seed=33),
+                dict(min_len=41, max_len=127, seed=34,
+                     qual_bins=(2, 12, 23, 37))),
+    # 2u on both mates, of different uniform lengths (L1 != L2)
+    "2u": (dict(min_len=100, max_len=100, seed=35,
+                qual_bins=(2, 12, 23, 37)),
+           dict(min_len=96, max_len=96, seed=36,
+                qual_bins=(2, 12, 23, 37))),
+}
+
+
+def _mate_blocks(tmp_path, name, n=1200, batch=400, **kw):
+    from gen import make_fastq
+    from hpgq.io.fastq import FastqReader
+
+    path = str(tmp_path / name)
+    make_fastq(path, n, n_prob=0.02, **kw)
+    with FastqReader(path, batch_size=batch) as rd:
+        return list(rd)
+
+
+def _payload(block, wire, lcap, rows=512):
+    """One mate's host payload in the port's form (the 2u tuple tagged)."""
+    from hpgq.io.packer import (
+        pack_block,
+        pack_block_wire,
+        try_pack_block_2u,
+        wire_len,
+    )
+
+    if wire == "2u":
+        return ("2u",) + try_pack_block_2u(block, pad_reads_to=rows)
+    if wire == "bitpack":
+        return pack_block_wire(block, "bitpack",
+                               wire_len(block.max_len(), lcap),
+                               pad_reads_to=rows, allow6=True, allow2c=True)
+    return pack_block(block, max_len=lcap, pad_reads_to=rows)
+
+
+def _on_cpu(payload):
+    from hpgq_torch.pipeline.session import to_device
+
+    return to_device((payload,), torch.device("cpu"))[0]
+
+
+def _compare_pair(acc_j, acc_t, keys):
+    host = to_numpy(acc_t)
+    for k in keys:
+        np.testing.assert_array_equal(np.asarray(acc_j[k]), host[k],
+                                      err_msg=k)
+    np.testing.assert_allclose(float(host["acc_quality"]),
+                               float(acc_j["acc_quality"]), rtol=1e-4)
+
+
+def _run_pair_steps(batches, lcap, crit, kmers, jax_step, port=None):
+    """Batch 0 through ``jax_step``; both accumulators handed over with
+    from_jax_partials; the rest through ``jax_step`` and through the
+    port's paired step (on the same batches, or on ``port``'s payloads of
+    them).  Returns the two (JAX, port) accumulator pairs."""
+    from hpgq_torch.kernels.step import make_paired_stats_step
+
+    acc1_j = stats_jnp.zero_partials(lcap, kmers)
+    acc2_j = stats_jnp.zero_partials(lcap, kmers)
+    acc1_j, acc2_j = jax_step(acc1_j, acc2_j, *batches[0])
+    acc1_t, acc2_t = (from_jax_partials({k: np.asarray(v)
+                                         for k, v in a.items()}, "cpu")
+                      for a in (acc1_j, acc2_j))
+    step_t = make_paired_stats_step(lcap, PHRED33, crit, kmers)
+    for (in1, in2), (p1, p2) in zip(batches[1:], (port or batches)[1:]):
+        acc1_j, acc2_j = jax_step(acc1_j, acc2_j, in1, in2)
+        acc1_t, acc2_t = step_t(acc1_t, acc2_t, _on_cpu(p1), _on_cpu(p2))
+    return (acc1_j, acc1_t), (acc2_j, acc2_t)
+
+
+@pytest.mark.parametrize("kmers", [False, True], ids=["nokmers", "kmers"])
+@pytest.mark.parametrize("wire", list(PAIR_MATES))
+@pytest.mark.parametrize("crit", list(PAIR_CRITS.values()),
+                         ids=list(PAIR_CRITS))
+def test_paired_step_matches_jax(tmp_path, crit, wire, kmers):
+    """The port's paired step against ``stats_jnp.make_paired_stats_step``
+    (``make_paired_stats_step2u`` for the 2u wire, mates of 100 and 96 bp)
+    with the jnp engine, three batches, state carried over from JAX:
+    integers exact (the pair tallies in mate 1's accumulator),
+    ``acc_quality`` to 1e-4 relative."""
+    from hpgq_torch.kernels import step as tstep
+
+    lcap = 128
+    kw1, kw2 = PAIR_MATES[wire]
+    pairs = list(zip(_mate_blocks(tmp_path, "m1.fq", **kw1),
+                     _mate_blocks(tmp_path, "m2.fq", **kw2)))
+    batches = [(_payload(b1, wire, lcap), _payload(b2, wire, lcap))
+               for b1, b2 in pairs]
+    if wire == "2u":
+        step_j = stats_jnp.make_paired_stats_step2u(
+            lcap, PHRED33, kmers, crit, 100, 96, engine="jnp", jit=False)
+
+        def jax_step(a1, a2, in1, in2):
+            return step_j(a1, a2, *in1[1:5], *in2[1:5])
+    else:
+        jax_step = stats_jnp.make_paired_stats_step(
+            lcap, PHRED33, kmers, crit, jit=False, engine="jnp",
+            wire="bitpack" if wire == "bitpack" else None)
+    tstep.WIRE_BATCHES.clear()
+    (a1j, a1t), (a2j, a2t) = _run_pair_steps(batches, lcap, crit, kmers,
+                                             jax_step)
+    keys = INT_KEYS + (KMER_KEYS if kmers else ())
+    _compare_pair(a1j, a1t, keys + ("num_passed", "num_failed"))
+    _compare_pair(a2j, a2t, keys)
+    assert sum(tstep.WIRE_BATCHES.values()) == 2 * (len(batches) - 1)
+    if wire == "2u":
+        assert tstep.WIRE_BATCHES["2u"] == 4
+    if crit is not None:
+        assert 0 < int(a1t["num_passed"]) < int(a1t["num_passed"]
+                                                + a1t["num_failed"])
+    assert int(a2t["num_passed"]) == 0  # the tallies live in mate 1 only
+
+
+def test_paired_step_mixed_tiers_match_plain_jax(tmp_path):
+    """Mate 1 on the 2u wire, mate 2 on the adaptive bitpack tiers (the
+    mates need not share a tier in the port): equal to the JAX paired step
+    on the plain tensors of the same blocks."""
+    from hpgq.io.packer import pack_block
+
+    lcap = 128
+    crit = CRITS["bench"]
+    b1s = _mate_blocks(tmp_path, "m1.fq", min_len=100, max_len=100,
+                       seed=37, qual_bins=(2, 12, 23, 37))
+    b2s = _mate_blocks(tmp_path, "m2.fq", min_len=41, max_len=127, seed=38)
+    plain = [(pack_block(b1, max_len=lcap, pad_reads_to=512),
+              pack_block(b2, max_len=lcap, pad_reads_to=512))
+             for b1, b2 in zip(b1s, b2s)]
+    mixed = [(_payload(b1, "2u", lcap), _payload(b2, "bitpack", lcap))
+             for b1, b2 in zip(b1s, b2s)]
+    assert all(not isinstance(m2, tuple) or len(m2) == 2 for _, m2 in mixed)
+    jax_step = stats_jnp.make_paired_stats_step(lcap, PHRED33, False, crit,
+                                                jit=False, engine="jnp")
+    (a1j, a1t), (a2j, a2t) = _run_pair_steps(plain, lcap, crit, False,
+                                             jax_step, port=mixed)
+    _compare_pair(a1j, a1t, INT_KEYS + ("num_passed", "num_failed"))
+    _compare_pair(a2j, a2t, INT_KEYS)
+
+
+def test_paired_step_long_reads_match_jax():
+    """lcap 4608 (K2's contract on the CPU twin) with a long-read filter:
+    equal to the jnp paired step."""
+    lcap = 4608
+    batches = []
+    for s in range(3):
+        m1 = _rand_batch(48, lcap, seed=200 + s)
+        m2 = _rand_batch(48, lcap, seed=300 + s)
+        batches.append((m1, m2))
+    jax_step = stats_jnp.make_paired_stats_step(lcap, PHRED33, False,
+                                                LONG_CRIT, jit=False,
+                                                engine="jnp")
+    (a1j, a1t), (a2j, a2t) = _run_pair_steps(batches, lcap, LONG_CRIT, False,
+                                             jax_step)
+    _compare_pair(a1j, a1t, INT_KEYS + ("num_passed", "num_failed"))
+    _compare_pair(a2j, a2t, INT_KEYS)
+    assert int(a1t["num_passed"]) > 0 and int(a1t["num_failed"]) > 0

@@ -214,3 +214,36 @@ def test_step_plain_matches_jax(tmp_path):
         acc_j = step_j(acc_j, *packed)
         acc_t = step_t(acc_t, *(_t(a) for a in packed))
     _compare_acc(acc_t, acc_j)
+
+
+@pytest.mark.parametrize("shape", ["varlen", "fixed", "padded"])
+def test_decode_qn8_matches_jnp(tmp_path, shape):
+    """The qn8 decoder on ``pack_block_qnwire`` buffers: all four outputs
+    equal ``stats_jnp.wire_unqn8``'s (codes 4 at N, 0 elsewhere), and
+    quals/lens/valid equal ``pack_block``'s inside each read."""
+    from hpgq.io.packer import pack_block_qnwire
+
+    kw = {"varlen": dict(min_len=41, max_len=127),
+          "fixed": dict(min_len=100, max_len=100),
+          "padded": dict(min_len=5, max_len=60)}[shape]
+    rows, L = (1024, 64) if shape == "padded" else (700, 128)
+    for block in _blocks(tmp_path, seed=17, **kw):
+        buf = pack_block_qnwire(block, L, pad_reads_to=rows)
+        assert buf.shape == (rows, L + 8)
+        assert wire_torch.qnwire_logical_len(buf.shape[1]) == \
+            stats_jnp.qnwire_logical_len(buf.shape[1]) == L
+        got = wire_torch.wire_unqn8(_t(buf))
+        want = stats_jnp.wire_unqn8(buf)
+        for name, g, w in zip(("codes", "quals", "lens", "valid"), got, want):
+            assert g.numpy().dtype == np.asarray(w).dtype, name
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=name)
+        codes, quals, lens, valid = pack_block(block, max_len=L,
+                                               pad_reads_to=rows)
+        inside = np.arange(L)[None, :] < lens[:, None]
+        np.testing.assert_array_equal(got[2].numpy(), lens)
+        np.testing.assert_array_equal(got[3].numpy(), valid)
+        np.testing.assert_array_equal(np.where(inside, got[1].numpy(), 0),
+                                      np.where(inside, quals, 0))
+        np.testing.assert_array_equal(got[0].numpy() == 4,
+                                      (codes == 4) & inside)
