@@ -9,30 +9,39 @@ Phases, each printing its own lines:
 1. The card: ``nvidia-smi`` name and power limit, torch's device name.
 2. The build: compile the K1 and K2 kernels from
    ``hpgq_torch/kernels/csrc`` (one nvcc per source, in parallel).
-3. K1 against its plain PyTorch twin on the same CUDA tensors: the
-   131072 x 128 main-path batch (also with the k-mer ride-along), ragged
-   batches, and five filter settings.  Integer fields must match exactly;
-   ``acc_quality`` to 1e-4 relative (per-block f32 sums are added in
-   another order than torch's).
+3. K1 against its plain PyTorch twin on the same CUDA tensors.  The plain
+   entry: the 131072 x 128 main-path batch (also with the k-mer
+   ride-along), ragged, all-invalid, 4096-wide, empty and any-byte-code
+   batches.  The 2u entry against ``wire_unbits2u`` + the twin: the
+   131072 x 52-byte main-path wire (78k exceptions), ragged ``n_valid``
+   with all-N rows, every base N, 37, 150 and 1500 bp, and an empty
+   batch.  Five filter
+   settings each.  Integer fields and the pass mask must match exactly;
+   ``acc_quality`` to 1e-4 relative (per-tile f32 sums are added in
+   another order than torch's).  Then both entries timed against the
+   twin: device ms, bytes needed, GB/s, the bound and its share.
 4. End to end: ``hpgq_torch.stats`` with the bench's inline filter over a
    generated 1,000,000 x 100 bp RTA3-binned corpus on ``cuda``, held
    against ``hpgq_torch.oracle``, a plain numpy reference computed from
    the generated reads themselves (every integer counter exact,
-   ``acc_quality`` to 1e-3), with K1 launches and the 2u wire tier
-   required; then reads/s of three warm passes.
+   ``acc_quality`` to 1e-3); every batch on the 2u tier must go to K1's
+   2u entry, none decoded on the card; then reads/s of three warm
+   passes.
 5. The other wire tiers (2c, 2q, 6-bit, 7-bit, plain) on 200k reads of
    60-150 bp, each held against the reference, and one ``kmers=True`` run
    (K1 + the k-mer ride-along, k-mer tables exact).
 6. Only when asked for: ``hpgq_torch.breakdown`` over the phase-4 corpus
    (end-to-end arms in turns, each stage alone, the device's busy share).
 7. K2 against its plain twin on CUDA tensors, from lcap 4224 to 66048,
-   ragged, empty and all-invalid batches, five filter settings (and a
-   minimum quality alone at 24576, where the MAX sentinel times the length
-   passes int32), k-mers off and on; every integer field and the pass mask
-   exact, ``acc_quality`` to 1e-4.  Also at phase 8's batch shape
-   (512 x 89472, mixed lengths, padding rows) and on the 512 x 32768 timed
-   batch, with the NanoFilt-style filter too.  Then K2 against the twin on
-   the timed batch: CUDA events in turns, and K2's device time.
+   ragged, empty, all-invalid and any-byte-code batches, one to seven
+   reads with lengths on and off the 512-column tile edges, a width that
+   is no multiple of 16, five filter settings (and a minimum quality
+   alone at 24576, where the MAX sentinel times the length passes int32),
+   k-mers off and on; every integer field and the pass mask exact,
+   ``acc_quality`` to 1e-4.  Also at phase 8's batch shape (512 x 89472,
+   mixed lengths, padding rows) and on the 512 x 32768 timed batch, with
+   the NanoFilt-style filter too.  Then K2 timed against the twin on
+   both, as in phase 3.
 8. Long reads end to end: about 10,000 reads of 2-30 kb plus a few dozen
    of 66-90 kb (lcap past 65536), unbinned qualities; ``hpgq_torch.stats``
    with ``kmers=True`` and with a NanoFilt-style filter, each held against
@@ -42,8 +51,9 @@ Phases, each printing its own lines:
    corpus, mate 2 the same recipe with seed 8); ``hpgq_torch.stats(m1,
    m2)`` with the bench filter and with none, both mates held against
    ``oracle.reference_paired_stats`` (statistics over the pairs where both
-   mates pass, tallies per pair), every mate batch on the 2u tier and K1;
-   then pairs/s of three warm passes.
+   mates pass, tallies per pair), every mate batch on the 2u tier: with
+   the filter decoded for the pair verdict and sent to K1's plain entry,
+   without it sent to the 2u entry; then pairs/s of three warm passes.
 10. Filter: ``hpgq_torch.filter_reads`` single-end over phase 4's corpus
     (2c tier), paired over phase 9's pairs, and with the NanoFilt-style
     thresholds over phase 8's long reads (qn8 tier); every output file
@@ -52,13 +62,17 @@ Phases, each printing its own lines:
 
 Phases 9 and 10 reuse the corpora of phases 4 and 8, and write them when
 those phases are not selected.  On an NVIDIA H100 80GB HBM3 (700 W) the
-default run takes about 250 s of command time, the build included, of
+default run takes about 255 s of command time, the build included, of
 which phases 9 and 10 take about 100 s (half of it writing the mate-2
 corpus and computing the references); ``--phases 9,10`` alone takes about
-135 s, since it writes all three corpora itself.
+135 s, since it writes all three corpora itself.  The kernels line gives
+K1's plain and 2u entries and K2 with their launches on the paths that
+drive them (phase 4 and 9's unfiltered run for the 2u entry, phases 5 and
+9's filtered run for the plain entry, phase 8 for K2).
 
-Imports nothing of jax: the run blocks ``import jax``, so a path that
-needed it would fail here.  Any failure exits non-zero before the result
+Imports nothing of jax and nothing of the JAX package ``hpgq``: the run
+blocks ``import jax`` and ``import hpgq``, so a path that needed either
+would fail here.  Any failure exits non-zero before the result
 lines; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,6 +88,7 @@ import traceback
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+BLOCKED = ("jax", "jaxlib", "hpgq")  # the port needs none of them
 TILE = 64  # rows per K1 block, for the ragged shapes
 
 INT_KEYS = ("num_reads", "acc_length", "min_length", "max_length",
@@ -97,9 +112,12 @@ def say(phase, msg):
 
 # ---------------------------------------------------------------- inputs
 
-def make_batch(B, L, seed, lens=None, valid_frac=1.0, binned=True):
+def make_batch(B, L, seed, lens=None, valid_frac=1.0, binned=True,
+               any_byte=False):
     """(codes int8, quals uint8, lens int32, valid bool) numpy, packer
-    layout: codes 5 / quals 0 beyond each read's length."""
+    layout: codes 5 / quals 0 beyond each read's length; with
+    ``any_byte`` a third of the codes take values 6..127, which the packers
+    never write (the kernels' exact path for such bytes)."""
     rng = np.random.default_rng(seed)
     if lens is None:
         lens = rng.integers(0, L + 1, size=B)
@@ -107,6 +125,9 @@ def make_batch(B, L, seed, lens=None, valid_frac=1.0, binned=True):
     codes = rng.integers(0, 4, size=(B, L)).astype(np.int8)
     codes[rng.random((B, L)) < 0.005] = 4
     codes[rng.random((B, L)) < 0.001] = 5
+    if any_byte:
+        wild = rng.random((B, L)) < 0.33
+        codes[wild] = rng.integers(6, 128, size=int(wild.sum()))
     if binned:
         bins = np.array([2, 12, 23, 37]) + 33
         quals = bins[rng.integers(0, 4, size=(B, L))].astype(np.uint8)
@@ -171,15 +192,102 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def reset_counts():
+    """Zero every launch and wire counter, just before a path is driven."""
+    from hpgq_torch.kernels import stats_cuda, step
+
+    stats_cuda.LAUNCHES = stats_cuda.LAUNCHES_2U = stats_cuda.LAUNCHES_K2 = 0
+    step.WIRE_BATCHES.clear()
+    step.DECODED.clear()
+
+
+def launch_counts():
+    """Launches per kernel since :func:`reset_counts`."""
+    from hpgq_torch.kernels import stats_cuda
+
+    return {"K1": stats_cuda.LAUNCHES, "K1 2u": stats_cuda.LAUNCHES_2U,
+            "K2": stats_cuda.LAUNCHES_K2}
+
+
+# H100 SXM peaks: HBM bytes/s from NVIDIA's datasheet, and the 32-bit
+# integer instruction rate the kernels' work runs on: 64 results per clock
+# per SM for integer add, compare, logic and shift on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
+# x 132 SMs x 1.98 GHz boost clock
+PEAK_BYTES = 3.35e12
+PEAK_INT_OPS = 64 * 132 * 1.98e9
+OPS_PER_BASE = 10  # integer operations per base the stats need, at least
+
+
+def output_bytes(B, lcap, n_f32):
+    """Bytes of every output of one call: the int64 partials, the f32
+    slots and the pass mask."""
+    return 8 * (8 + lcap + 1 + 256 + 101 + 7 * lcap + 5) + 4 * n_f32 + B
+
+
+def bound(nbytes, nbases):
+    """(bound ms, what bounds it): the larger of the bytes over HBM and the
+    integer operations over the SMs' 32-bit integer peak."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = OPS_PER_BASE * nbases / PEAK_INT_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernel(phase, label, kernel_fn, plain_fn, name, nbytes, nbases,
+                launches_per_call=1):
+    """The kernel against its plain twin on the same inputs: CUDA events in
+    turns (plain, kernel, kernel, plain), then the kernels' device time
+    alone (profiler); prints ms, bytes, GB/s, the bound and its share."""
+    ms_plain = ms = None
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        if turn == "kernel":
+            t = cuda_time_ms(kernel_fn)
+            ms = t if ms is None else min(ms, t)
+        else:
+            t = cuda_time_ms(plain_fn)
+            ms_plain = t if ms_plain is None else min(ms_plain, t)
+    dev_ms = kernel_device_ms(kernel_fn, launches_per_call, name=name)
+    b_ms, b_by = bound(nbytes, nbases)
+    k_ms = dev_ms if dev_ms is not None else ms
+    say(phase, "%s: wrapper %.4f ms per call, plain twin %.4f ms (CUDA "
+        "events, best of 2 turns of 20 calls); device %s ms per call "
+        "(torch.profiler, %d launch(es)); %d bytes needed, %.1f GB/s; bound "
+        "%.4f ms (%s), %.1f%% of the bound"
+        % (label, ms, ms_plain,
+           "not measured" if dev_ms is None else "%.4f" % dev_ms,
+           launches_per_call, nbytes, nbytes / k_ms / 1e6, b_ms, b_by,
+           100 * b_ms / k_ms))
+    return {"ms": k_ms, "wrapper_ms": ms, "plain_ms": ms_plain,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def make_2u(B, L, n_valid, seed, all_n_every=0):
+    """A 2u batch (numpy), from :func:`make_batch` rows of the uniform
+    length ``L`` (binned qualities, N and OTHER codes), the first
+    ``n_valid`` rows valid; every ``all_n_every``-th row all N."""
+    from hpgq_torch.io.packer import wire_bitpack2u_np
+
+    codes, quals, lens, _ = make_batch(B, -(-L // 128) * 128, seed,
+                                       lens=np.full(B, L))
+    if all_n_every:
+        codes[::all_n_every, :L] = 4
+    valid = np.arange(B) < n_valid
+    return wire_bitpack2u_np(codes, quals, lens, valid)
+
+
 def phase_kernel(dev):
+    """K1's plain and 2u entries against the plain twin; returns the
+    kernels-line fields of both."""
     import torch
 
     from hpgq_torch.api import filter_criteria
     from hpgq_torch.kernels.stats_cuda import (
         batch_partials_cuda,
+        batch_partials_cuda_2u,
         make_batch_partials,
     )
     from hpgq_torch.kernels.stats_torch import fused_partials
+    from hpgq_torch.kernels.wire_torch import pad_wire_cols, wire_unbits2u
 
     crits = {name: filter_criteria(**kw) for name, kw in FILTERS.items()}
     cases = [
@@ -189,10 +297,14 @@ def phase_kernel(dev):
         ("ragged B=1000 L=200 lcap=384", 1000, 200, 384, None, 0.9),
         ("ragged B=70 L=37 lcap=128", TILE + 6, 37, 128, None, 0.8),
         ("all rows invalid", 300, 128, 128, None, 0.0),
+        ("long rows 40x4096 lcap=4096", 40, 4096, 4096, None, 0.9),
+        ("empty 0x128", 0, 128, 128, None, 1.0),
+        ("codes of any byte 2000x128", 2000, 128, 128, None, 0.9),
     ]
-    max_err = 0.0
+    err = {"K1": 0.0, "K1 2u": 0.0}
     for ci, (label, B, L, lcap, lens, vf) in enumerate(cases):
-        arrs = make_batch(B, L, seed=100 + ci, lens=lens, valid_frac=vf)
+        arrs = make_batch(B, L, seed=100 + ci, lens=lens, valid_frac=vf,
+                          any_byte=label.startswith("codes of any"))
         if lens is None:
             arrs[2][:5] = 0  # length-0 rows
         t = [torch.from_numpy(a).to(dev) for a in arrs]
@@ -200,10 +312,53 @@ def phase_kernel(dev):
             k = batch_partials_cuda(*t, lcap, 33, crit)
             p = fused_partials(*t, lcap, 33, crit)
             torch.cuda.synchronize()
-            max_err = max(max_err, compare_partials(k, p, "%s / %s"
-                                                    % (label, name)))
+            err["K1"] = max(err["K1"], compare_partials(
+                k, p, "%s / %s" % (label, name)))
         say("k1", "%s: K1 == plain twin for %d filter settings"
             % (label, len(crits)))
+
+    def plain_2u(buf, exc, pal, n_valid, L, lcap, crit):
+        codes, quals, lens, valid = wire_unbits2u(buf, exc, pal, n_valid,
+                                                  L=L)
+        codes, quals = pad_wire_cols(codes, quals, lcap)
+        return fused_partials(codes, quals, lens, valid, lcap, 33, crit)
+
+    cases_2u = [
+        # (label, B, L, n_valid, all-N rows every)
+        ("main 131072x52 bytes (L 100)", 131072, 100, 131072, 0),
+        ("ragged n_valid 70000 of 81920, all-N rows", 81920, 100, 70000, 97),
+        ("L 37, n_valid 1000 of 1024", 1024, 37, 1000, 0),
+        ("L 150, n_valid 5 of 64", 64, 150, 5, 2),
+        # every base N: a tile holds more exceptions than one window
+        ("all rows all N, 256 x L 100", 256, 100, 256, 1),
+        # past 1024 bases: two word passes per thread
+        ("L 1500, n_valid 300 of 320", 320, 1500, 300, 0),
+    ]
+    wires = {}
+    for ci, (label, B, L, n_valid, every) in enumerate(cases_2u):
+        buf, exc, pal, nv = make_2u(B, L, n_valid, seed=150 + ci,
+                                    all_n_every=every)
+        wire = [torch.from_numpy(a).to(dev) for a in (buf, exc, pal)]
+        wires[label] = (wire, nv, L)
+        lcap = -(-L // 128) * 128
+        n_exc = int((exc < (B * 2 * buf.shape[1]) << 1).sum())
+        for name, crit in crits.items():
+            k = batch_partials_cuda_2u(*wire, nv, L, lcap, 33, crit)
+            p = plain_2u(*wire, nv, L, lcap, crit)
+            torch.cuda.synchronize()
+            err["K1 2u"] = max(err["K1 2u"], compare_partials(
+                k, p, "2u %s / %s" % (label, name)))
+        say("k1", "2u %s (%d exceptions): K1 2u entry == decode + plain "
+            "twin for %d filter settings" % (label, n_exc, len(crits)))
+    empty = [torch.zeros((0, 52), dtype=torch.uint8, device=dev),
+             torch.zeros(8192, dtype=torch.int32, device=dev),
+             torch.zeros(4, dtype=torch.uint8, device=dev)]
+    for name, crit in crits.items():
+        err["K1 2u"] = max(err["K1 2u"], compare_partials(
+            batch_partials_cuda_2u(*empty, 0, 100, 128, 33, crit),
+            plain_2u(*empty, 0, 100, 128, crit), "2u empty / " + name))
+    say("k1", "2u empty batch: K1 2u entry == decode + plain twin")
+
     codes, quals, lens, valid = (torch.from_numpy(a).to(dev) for a in
                                  make_batch(131072, 128, seed=100,
                                             lens=np.full(131072, 100)))
@@ -213,47 +368,57 @@ def phase_kernel(dev):
     p = fused_partials(codes, quals, lens, valid, 128, 33, bench,
                        kmers_on=True)
     torch.cuda.synchronize()
-    max_err = max(max_err, compare_partials(k, p, "main + k-mers"))
+    err["K1"] = max(err["K1"], compare_partials(k, p, "main + k-mers"))
     say("k1", "131072x128, bench filter, k-mers on: K1 + ride-along == plain "
         "twin (%d k-mers counted)" % int(k["kmer_counts"].sum()))
-    ms_plain = ms = None
-    for turn in ("plain", "kernel", "kernel", "plain"):  # in turns
-        if turn == "kernel":
-            t = cuda_time_ms(lambda: batch_partials_cuda(
-                codes, quals, lens, valid, 128, 33, bench))
-            ms = t if ms is None else min(ms, t)
-        else:
-            t = cuda_time_ms(lambda: fused_partials(
-                codes, quals, lens, valid, 128, 33, bench))
-            ms_plain = t if ms_plain is None else min(ms_plain, t)
-    say("k1", "131072x128, bench filter: K1 wrapper %.4f ms per call, plain "
-        "twin %.4f ms (CUDA events, best of 2 turns of 20 calls)"
-        % (ms, ms_plain))
-    dev_ms = kernel_device_ms(lambda: batch_partials_cuda(
-        codes, quals, lens, valid, 128, 33, bench))
-    say("k1", "K1 kernel alone: %s ms of device time per launch "
-        "(torch.profiler, 20 launches)"
-        % ("not measured" if dev_ms is None else "%.4f" % dev_ms))
-    return max_err, ms, ms_plain
+
+    B = 131072
+    nbases = int(lens.clamp(max=128).sum())
+    out = {"K1": time_kernel(
+        "k1", "K1 plain entry, 131072x128 (len 100), bench filter",
+        lambda: batch_partials_cuda(codes, quals, lens, valid, 128, 33,
+                                    bench),
+        lambda: fused_partials(codes, quals, lens, valid, 128, 33, bench),
+        "stats_k1_kernel", 2 * nbases + 5 * B + output_bytes(B, 128, 2049),
+        nbases)}
+    wire, nv, L = wires["main 131072x52 bytes (L 100)"]
+    n_exc = int((wire[1] < (B * 2 * wire[0].shape[1]) << 1).sum())
+    out["K1 2u"] = time_kernel(
+        "k1", "K1 2u entry, 131072x52 bytes (L 100, %d exceptions), bench "
+        "filter" % n_exc,
+        lambda: batch_partials_cuda_2u(*wire, nv, L, 128, 33, bench),
+        lambda: plain_2u(*wire, nv, L, 128, bench),
+        "stats_k1_kernel", wire[0].numel() + 4 * n_exc + 4
+        + output_bytes(B, 128, 2049), nv * L)
+    for key in out:
+        out[key]["max_abs_err"] = err[key]
+    return out
 
 
-def kernel_device_ms(fn, iters=20, name="stats_k1_kernel"):
+def kernel_device_ms(fn, launches, iters=20, name="stats_k1_kernel"):
     """Device time per call of ``fn`` spent in the kernels whose names
-    contain ``name`` (profiler; K2 is two launches per call)."""
+    contain ``name`` (profiler; K2 is two launches per call).  None when
+    the trace does not hold every one of the ``launches`` per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-             for ev in prof.key_averages() if name in ev.key and ev.count)
-    return us / iters / 1e3 if us else None
+    for _ in range(2):  # a trace that lost kernel records is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if name in ev.key]
+        if sum(ev.count for ev in evs) == launches * iters:
+            us = sum(getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+                     for ev in evs)
+            return us / iters / 1e3
+        say("prof", "%s: %s kernel records in the trace, expected %d"
+            % (name, {ev.key: ev.count for ev in evs}, launches * iters))
+    return None
 
 
 # ---------------------------------------------------------------- phases 4-5
@@ -301,18 +466,22 @@ def phase_end_to_end(tmp, smi):
     path, records = bench_corpus(tmp)
     out = tempfile.mkdtemp(dir=tmp)
 
-    stats_cuda.LAUNCHES = 0
-    step.WIRE_BATCHES.clear()
+    reset_counts()
     t0 = time.perf_counter()
     got = run_port(path, out, BENCH_FILTER)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = stats_cuda.LAUNCHES
+    launches = launch_counts()
     tiers = dict(step.WIRE_BATCHES)
-    say("e2e", "cold pass %.3f s, K1 launches %d, wire tiers %s"
-        % (cold, launches, tiers))
-    check(launches > 0, "the main path launched K1 no time")
-    check(tiers.get("2u", 0) > 0, "the 2u wire tier carried no batch")
+    decoded = dict(step.DECODED)
+    say("e2e", "cold pass %.3f s, launches %s, wire tiers %s, decoded %s"
+        % (cold, launches, tiers, decoded))
+    check(launches["K1 2u"] > 0, "the main path launched K1's 2u entry no "
+          "time")
+    check(tiers.get("2u", 0) == launches["K1 2u"],
+          "every 2u batch must go to K1's 2u entry (tiers %s)" % tiers)
+    check(not decoded.get(("cuda", "2u")), "the main path decoded a 2u "
+          "batch on the card (%s)" % decoded)
     check(os.path.exists(os.path.join(out, os.path.basename(path)
                                       + ".summary.txt")),
           "no summary report written")
@@ -337,13 +506,15 @@ def phase_end_to_end(tmp, smi):
     say("e2e", "warm passes: %d reads in %s s; best %.0f reads/s, median "
         "%.0f reads/s, on %s" % (n, ", ".join("%.3f" % t for t in times),
                                  n / min(times), n / sorted(times)[1], smi))
-    return launches, got.num_passed
+    return launches["K1 2u"], got.num_passed
 
 
 def phase_tiers(tmp):
+    """The other wire tiers and a k-mer run; returns K1 plain-entry
+    launches."""
     from gen import make_fastq
     from hpgq_torch.breakdown import environ
-    from hpgq_torch.kernels import stats_cuda, step
+    from hpgq_torch.kernels import step
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     binned = os.path.join(tmp, "var_binned.fq")
@@ -364,6 +535,7 @@ def phase_tiers(tmp):
         ("7bit", wide, {"HPGQ_WIRE6": "0"}),
         ("plain", wide, {"HPGQ_WIRE": "off"}),
     ]
+    reset_counts()
     for tier, path, env in runs:
         step.WIRE_BATCHES.clear()
         with environ(env):
@@ -375,15 +547,17 @@ def phase_tiers(tmp):
         say("tiers", "%s: %s, port == reference (%d passed, %d failed)"
             % (tier, tiers, got.num_passed, got.num_failed))
 
-    stats_cuda.LAUNCHES = 0
+    k1 = launch_counts()["K1"]
+    check(k1 > 0, "the tier runs launched K1 no time")
     kw = dict(BENCH_FILTER, kmers=True)
     got = run_port(binned, tempfile.mkdtemp(dir=tmp), kw)
-    check(stats_cuda.LAUNCHES > 0, "the k-mer run launched K1 no time")
+    check(launch_counts()["K1"] > k1, "the k-mer run launched K1 no time")
     assert_counters_equal(got, reference_stats(records_binned, **kw),
                           "k-mers")
     say("tiers", "k-mers (2c tier, bench filter): K1 launches %d, port == "
         "reference, k-mer tables too (%d k-mers counted)"
-        % (stats_cuda.LAUNCHES, int(got.kmer_counts.sum())))
+        % (launch_counts()["K1"] - k1, int(got.kmer_counts.sum())))
+    return launch_counts()["K1"]
 
 
 def phase_breakdown(tmp, smi):
@@ -423,7 +597,8 @@ def compare_k2(t, lcap, settings, label):
 
 
 def phase_k2(dev):
-    """K2 against its plain twin; returns (max abs err, ms, plain ms)."""
+    """K2 against its plain twin; returns its kernels-line fields (times
+    on the 512 x 32768 batch, no filter)."""
     import torch
 
     from hpgq_torch.api import filter_criteria
@@ -432,6 +607,7 @@ def phase_k2(dev):
     from hpgq_torch.kernels.stats_torch import fused_partials
 
     crits = {name: filter_criteria(**kw) for name, kw in FILTERS.items()}
+    long_t = None
     sentinel = {"min quality only": filter_criteria(
         read_quality_range=(5, None))}
     nanofilt = {"nanofilt": filter_criteria(**LONG_FILTER)}
@@ -454,17 +630,28 @@ def phase_k2(dev):
         ("empty 0x8192", 0, 8192, 8192, None, 1.0, {}),
         ("long-read batch 512x89472", 512, 89472, 89472, long_lens, 1.0,
          nanofilt),
+        # a few reads fill the card; lengths on and off the 512-column tile
+        # edges and not multiples of 16 (one read each for B = 1..7)
+    ] + [("%d long reads, tile edges" % b, b, 30016, 30016,
+          np.array([30016, 511, 512, 513, 1025, 16383, 29999][:b]), 1.0, {})
+         for b in range(1, 8)] + [
+        ("ragged 9x20007 (L % 16 != 0)", 9, 20007, 20096,
+         np.array([20007, 0, 1, 15, 17, 4099, 10000, 20006, 512]), 1.0, {}),
+        ("codes of any byte 64x8192", 64, 8192, 8192, None, 0.9, {}),
     ]
     max_err = 0.0
     before = stats_cuda.LAUNCHES_K2
     for ci, (label, B, L, lcap, lens, vf, extra) in enumerate(cases):
         arrs = make_batch(B, L, seed=700 + ci, lens=lens, valid_frac=vf,
-                          binned=False)
+                          binned=False,
+                          any_byte=label.startswith("codes of any"))
         if lens is None:
             arrs[2][:5] = 0  # length-0 rows
         if extra is nanofilt:
             arrs[3][490:] = False  # the block's padding rows
         t = [torch.from_numpy(a).to(dev) for a in arrs]
+        if extra is nanofilt:
+            long_t = t
         err, k = compare_k2(t, lcap, dict(crits, **extra), label)
         max_err = max(max_err, err)
         if extra is sentinel:  # only a minimum quality: every valid read
@@ -482,31 +669,27 @@ def phase_k2(dev):
     check(stats_cuda.LAUNCHES_K2 - before == 2 * (3 + sum(
         len(crits) + len(c[6]) for c in cases if c[1])),
         "K2 launch count %d" % (stats_cuda.LAUNCHES_K2 - before))
-    codes, quals, lens, valid = t
-    ms_plain = ms = None
-    for turn in ("plain", "kernel", "kernel", "plain"):  # in turns
-        if turn == "kernel":
-            t = cuda_time_ms(lambda: batch_partials_cuda_long(
-                codes, quals, lens, valid, L, 33))
-            ms = t if ms is None else min(ms, t)
-        else:
-            t = cuda_time_ms(lambda: fused_partials(
-                codes, quals, lens, valid, L, 33))
-            ms_plain = t if ms_plain is None else min(ms_plain, t)
-    # bytes K2 reads: codes + quals up to each read's length, once per
-    # read (launch A) and once more per passing read (launch B; no filter)
-    nbytes = 2 * int(lens.sum()) + 2 * int(lens[valid].sum())
-    say("k2", "%dx%d, no filter: K2 wrapper %.4f ms per call, plain twin "
-        "%.4f ms (CUDA events, best of 2 turns of 20 calls)"
-        % (B, L, ms, ms_plain))
-    dev_ms = kernel_device_ms(lambda: batch_partials_cuda_long(
-        codes, quals, lens, valid, L, 33), name="stats_k2_")
-    say("k2", "K2 kernels alone: %s ms of device time per call "
-        "(torch.profiler, 20 calls; both launches)%s" % (
-            "not measured" if dev_ms is None else "%.4f" % dev_ms,
-            "" if dev_ms is None else "; %d bytes read, %.1f GB/s"
-            % (nbytes, nbytes / dev_ms / 1e6)))
-    return max_err, ms, ms_plain
+    out = {}
+    for label, t, lcap, crit in (
+            ("512x32768, no filter (one sweep)", t, L, None),
+            ("512x32768, NanoFilt-style filter (two sweeps)", t, L,
+             nanofilt["nanofilt"]),
+            ("phase 8's batch 512x89472, NanoFilt-style filter", long_t,
+             89472, nanofilt["nanofilt"])):
+        codes, quals, lens, valid = t
+        Bt, Lt = codes.shape
+        nbases = int(lens.clamp(0, Lt).sum())
+        out[label] = time_kernel(
+            "k2", "K2, " + label,
+            lambda t=t, lcap=lcap, crit=crit: batch_partials_cuda_long(
+                *t, lcap, 33, crit),
+            lambda t=t, lcap=lcap, crit=crit: fused_partials(
+                *t, lcap, 33, crit),
+            "stats_k2_", 2 * nbases + 5 * Bt + output_bytes(Bt, lcap, Bt),
+            nbases, launches_per_call=1 if crit is None else 2)
+    res = out["512x32768, no filter (one sweep)"]
+    res["max_abs_err"] = max_err
+    return res
 
 
 # ---------------------------------------------------------------- phase 8
@@ -545,19 +728,19 @@ def long_read_runs(path, records, outdir, device):
     import torch
 
     import hpgq_torch
-    from hpgq_torch.kernels import stats_cuda, step
+    from hpgq_torch.kernels import step
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     out = {}
     for run, kw in (("kmers", dict(kmers=True)), ("filter", LONG_FILTER)):
-        stats_cuda.LAUNCHES = stats_cuda.LAUNCHES_K2 = 0
-        step.WIRE_BATCHES.clear()
+        reset_counts()
         t0 = time.perf_counter()
         got = hpgq_torch.stats(path, outdir=outdir, device=device, **kw)
         if device == "cuda":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        out[run] = (got, stats_cuda.LAUNCHES, stats_cuda.LAUNCHES_K2,
+        n = launch_counts()
+        out[run] = (got, n["K1"] + n["K1 2u"], n["K2"],
                     dict(step.WIRE_BATCHES), secs)
         assert_counters_equal(got, reference_stats(records, **kw),
                               "long reads, " + run)
@@ -624,24 +807,23 @@ def phase_long_reads(tmp, smi):
 def paired_runs(m1, recs1, m2, recs2, outdir, device):
     """``hpgq_torch.stats(m1, m2)`` on ``device`` with :data:`BENCH_FILTER`
     and with no filter, both mates held against
-    ``oracle.reference_paired_stats``; returns ``{run: (counters pair, K1
-    launches, wire tiers, seconds)}``."""
+    ``oracle.reference_paired_stats``; returns ``{run: (counters pair,
+    launches by kernel, wire tiers, seconds)}``."""
     import torch
 
     import hpgq_torch
-    from hpgq_torch.kernels import stats_cuda, step
+    from hpgq_torch.kernels import step
     from hpgq_torch.oracle import assert_counters_equal, reference_paired_stats
 
     out = {}
     for run, kw in (("filter", BENCH_FILTER), ("all", {})):
-        stats_cuda.LAUNCHES = 0
-        step.WIRE_BATCHES.clear()
+        reset_counts()
         t0 = time.perf_counter()
         got = hpgq_torch.stats(m1, m2, outdir=outdir, device=device, **kw)
         if device == "cuda":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        out[run] = (got, stats_cuda.LAUNCHES, dict(step.WIRE_BATCHES), secs)
+        out[run] = (got, launch_counts(), dict(step.WIRE_BATCHES), secs)
         want = reference_paired_stats(recs1, recs2, **kw)
         for mate, g, w in zip((1, 2), got, want):
             assert_counters_equal(g, w, "paired %s, mate %d" % (run, mate))
@@ -675,27 +857,29 @@ def warm_passes(fn, n, unit, smi, label, phase):
 
 
 def phase_paired(tmp, smi):
-    """Paired stats over 1M pairs of 2 x 100 bp; returns K1 launches of
-    the filtered run."""
+    """Paired stats over 1M pairs of 2 x 100 bp; returns the launches of
+    K1's plain entry (the filtered run: the pair verdict reads both mates
+    decoded) and of its 2u entry (the run with no filter)."""
     m1, recs1 = bench_corpus(tmp)
     m2, recs2 = bench_corpus(tmp, seed=8)
     t0 = time.perf_counter()
     runs = paired_runs(m1, recs1, m2, recs2, tempfile.mkdtemp(dir=tmp),
                        "cuda")
-    for run, ((c1, c2), k1, tiers, secs) in runs.items():
-        check(k1 > 0, "the paired %s run launched K1 no time" % run)
-        check(tiers == {"2u": k1}, "paired %s: every mate batch must ride "
-              "the 2u tier and launch K1 once (tiers %s, K1 launches %d)"
-              % (run, tiers, k1))
-        say("paired", "%s: cold pass %.3f s, K1 launches %d, wire tiers %s; "
+    for run, ((c1, c2), n, tiers, secs) in runs.items():
+        entry = "K1" if run == "filter" else "K1 2u"
+        check(n[entry] > 0 and tiers == {"2u": n[entry]}
+              and n["K1"] + n["K1 2u"] == n[entry],
+              "paired %s: every mate batch must ride the 2u tier and launch "
+              "%s once (tiers %s, launches %s)" % (run, entry, tiers, n))
+        say("paired", "%s: cold pass %.3f s, launches %s, wire tiers %s; "
             "both mates == reference (%d pairs counted, %d passed, %d "
-            "failed)" % (run, secs, k1, tiers, c1.num_reads, c1.num_passed,
+            "failed)" % (run, secs, n, tiers, c1.num_reads, c1.num_passed,
                          c1.num_failed))
     say("paired", "both runs and their references took %.1f s"
         % (time.perf_counter() - t0))
     warm_passes(lambda: run_port_paired(m1, m2, tempfile.mkdtemp(dir=tmp)),
                 len(recs1), "pairs", smi, "bench filter", "paired")
-    return runs["filter"][1]
+    return runs["filter"][1]["K1"], runs["all"][1]["K1 2u"]
 
 
 def run_port_paired(m1, m2, outdir):
@@ -796,7 +980,7 @@ def main(argv=None):
                          "asked for; the card and the build always run)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
-    for name in ("jax", "jaxlib"):  # any import of jax now fails the run
+    for name in BLOCKED:  # any import of jax or hpgq now fails the run
         sys.modules[name] = None
 
     import torch
@@ -828,31 +1012,43 @@ def main(argv=None):
 
     def entry(name, source, replaces):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": None, "max_abs_err": None,
-                "ms": None, "plain_ms": None}
+                "replaces": replaces, "launches": 0, "max_abs_err": None,
+                "ms": None, "plain_ms": None, "bound_ms": None,
+                "bound_by": None, "library_ms": None}
 
-    k1 = entry("K1 stats_k1_kernel", "hpgq_torch/kernels/csrc/stats_k1.cu",
+    k1 = entry("K1 stats_k1_kernel, plain entry",
+               "hpgq_torch/kernels/csrc/stats_k1.cu",
                "hpgq/kernels/stats_pallas.py:60")
-    k2 = entry("K2 stats_k2_reads + stats_k2_positions",
+    k1u = entry("K1 stats_k1_kernel, 2u entry",
+                "hpgq_torch/kernels/csrc/stats_k1.cu",
+                "hpgq/kernels/stats_pallas.py:60")
+    k2 = entry("K2 stats_k2_rows + stats_k2_positions",
                "hpgq_torch/kernels/csrc/stats_k2.cu",
                "hpgq/kernels/stats_pallas.py:281")
     tmp = tempfile.mkdtemp(prefix="hpgq_torch_smoke_")
     se_passed = None
     try:
+        # launches come from the paths that drive each kernel: the main
+        # path (phase 4) and paired stats with no filter (9) for the 2u
+        # entry; the other wire tiers (5) and the paired filter (9) for the
+        # plain entry; long reads (8) for K2
         if 3 in phases:
-            err, ms, plain_ms = phase_kernel(dev)
-            k1.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            res = phase_kernel(dev)
+            k1.update(res["K1"])
+            k1u.update(res["K1 2u"])
         if 7 in phases:
-            err, ms, plain_ms = phase_k2(dev)
-            k2.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            k2.update(phase_k2(dev))
         if 4 in phases:
-            k1["launches"], se_passed = phase_end_to_end(tmp, smi)
+            n, se_passed = phase_end_to_end(tmp, smi)
+            k1u["launches"] += n
         if 5 in phases:
-            phase_tiers(tmp)
+            k1["launches"] += phase_tiers(tmp)
         if 8 in phases:
-            k2["launches"] = phase_long_reads(tmp, smi)
-        if 9 in phases:  # K1's launches over both of its paths
-            k1["launches"] = (k1["launches"] or 0) + phase_paired(tmp, smi)
+            k2["launches"] += phase_long_reads(tmp, smi)
+        if 9 in phases:
+            n_plain, n_2u = phase_paired(tmp, smi)
+            k1["launches"] += n_plain
+            k1u["launches"] += n_2u
         if 10 in phases:
             phase_filter(tmp, smi, se_passed)
         if 6 in phases:
@@ -860,7 +1056,7 @@ def main(argv=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k1u, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 The JAX package ``hpgq`` stays the reference; this package runs the same
 commands with PyTorch, and every Pallas kernel on a ported path becomes a
-kernel written by hand for Hopper (``hpgq_torch/kernels/csrc``).  Host
-layers without a jax import (reader, native packer, options, counters,
-report, checkpoint) are shared with ``hpgq``.
+kernel written by hand for Hopper (``hpgq_torch/kernels/csrc``).  The
+port imports nothing of ``hpgq``: it keeps its own copies of the host
+layers it needs (reader, native packer, options, counters, report,
+checkpoint), in ``hpgq``'s layout, with the same formats.
 
 Ported so far: ``stats`` for reads of any length, single-end or paired,
 with and without the inline filter and with ``--kmers`` (``python -m

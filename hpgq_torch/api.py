@@ -14,13 +14,71 @@ raises).
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
-from hpgq.api import _Range, _common, _criteria
-from hpgq.options import FilterOptions, StatsOptions
-
+from .constants import NO_VALUE, QUALITY_ENCODINGS
 from .device import resolve_device
+from .options import FilterOptions, StatsOptions
 from .pipeline.run import run_filter, run_stats
+
+_Range = Optional[Tuple[Optional[int], Optional[int]]]
+
+
+# _set_range, _common and _criteria are copies of hpgq/api.py:37-88, so the
+# two APIs build the same options from the same keywords.
+def _set_range(crit, lo_attr: str, hi_attr: str, rng: _Range):
+    if rng is None:
+        return
+    lo, hi = rng
+    if lo is not None:
+        setattr(crit, lo_attr, int(lo))
+    if hi is not None:
+        setattr(crit, hi_attr, int(hi))
+
+
+def _common(opts, in_path, in_path2, outdir, encoding, batch_size,
+            checkpoint, sharded):
+    opts.in_filename = os.fspath(in_path)
+    opts.in_filename2 = os.fspath(in_path2) if in_path2 else None
+    opts.out_dirname = os.fspath(outdir)
+    os.makedirs(opts.out_dirname, exist_ok=True)
+    enc = QUALITY_ENCODINGS.get(str(encoding))
+    if enc is None:
+        raise ValueError(
+            "invalid quality encoding %r (valid: phred33, phred64)" % encoding
+        )
+    opts.quality_encoding_name = str(encoding)
+    opts.quality_encoding_value = enc
+    opts.batch_size = int(batch_size)
+    opts.checkpoint_path = checkpoint
+    opts.sharded = bool(sharded)
+    return opts
+
+
+def _criteria(opts, read_length_range, read_quality_range, max_N,
+              max_out_of_quality, left, right):
+    c = opts.criteria
+    _set_range(c, "min_read_length", "max_read_length", read_length_range)
+    _set_range(c, "min_read_quality", "max_read_quality", read_quality_range)
+    if max_N is not None:
+        c.max_N = int(max_N)
+    if max_out_of_quality is not None:
+        c.max_out_of_quality = int(max_out_of_quality)
+    if left is not None:
+        length, rng = left
+        c.left_length = int(length)
+        _set_range(c, "min_left_quality", "max_left_quality", rng)
+    if right is not None:
+        length, rng = right
+        c.right_length = int(length)
+        _set_range(c, "min_right_quality", "max_right_quality", rng)
+    return any(
+        getattr(c, f) != NO_VALUE
+        for f in ("min_read_length", "max_read_length", "min_read_quality",
+                  "max_read_quality", "max_N", "max_out_of_quality",
+                  "left_length", "right_length")
+    )
 
 
 def stats(in_path, in_path2=None, outdir=".", *, kmers: bool = False,
@@ -30,7 +88,7 @@ def stats(in_path, in_path2=None, outdir=".", *, kmers: bool = False,
           left=None, right=None, checkpoint: Optional[str] = None,
           sharded: bool = False, report: bool = True, device="cuda"):
     """QC statistics (the `stats` command) on ``device``.  Returns
-    :class:`~hpgq.core.counters.StatsCounters` (a pair when paired-end).
+    :class:`~hpgq_torch.core.counters.StatsCounters` (a pair when paired-end).
     Passing any threshold enables the inline pre-filter."""
     dev = resolve_device(device)
     opts = _common(StatsOptions(), in_path, in_path2, outdir, encoding,

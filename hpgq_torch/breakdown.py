@@ -25,11 +25,11 @@ import time
 
 import torch
 
-from hpgq.api import _common
-from hpgq.constants import DEFAULT_BATCH_SIZE
-from hpgq.io.fastq import FastqReader
-from hpgq.options import StatsOptions
-from hpgq.utils.timers import StageTimers
+from .api import _common
+from .constants import DEFAULT_BATCH_SIZE
+from .io.fastq import FastqReader
+from .options import StatsOptions
+from .utils.timers import StageTimers
 
 from .api import filter_criteria
 from .device import resolve_device

@@ -1,9 +1,10 @@
 """hpgq_torch command-line interface: ``python -m hpgq_torch stats|filter``.
 
 The `stats` and `filter` commands take ``hpgq``'s flags (the parser
-helpers of ``hpgq.cli.main`` are reused, so the PARAMETERS and RESULTS
-blocks, the report files and the FASTQ outputs come out byte-for-byte as
-``hpgq`` writes them) plus ``--device`` (default ``cuda``).  The other
+helpers below are copies of ``hpgq/cli/main.py``'s, so the PARAMETERS and
+RESULTS blocks, the report files and the FASTQ outputs come out
+byte-for-byte as ``hpgq`` writes them) plus ``--device`` (default
+``cuda``).  The other
 commands, and the legacy single-binary flags, are not ported yet and exit
 non-zero.
 """
@@ -14,18 +15,355 @@ import argparse
 import logging
 import sys
 
-from hpgq.cli.main import (
-    _add_common,
-    _add_legacy_filter_aliases,
-    _ns_to_opts,
-    _results_banner,
-)
-from hpgq.options import FilterOptions, StatsOptions, display, validate_common
-from hpgq.utils.timers import StageTimers
-
 from .. import __version__
+from ..options import (
+    FilterOptions,
+    OptionsError,
+    StatsOptions,
+    display,
+    validate_common,
+)
+from ..utils.timers import StageTimers
 
 _NOT_PORTED = ("edit", "prepro", "cgr")
+
+# The parser helpers from here to _results_banner are copies of
+# hpgq/cli/main.py:40-42 and :63-391.
+
+_LOG_LEVELS = {1: logging.DEBUG, 2: logging.INFO, 3: logging.WARNING,
+               4: logging.ERROR, 5: logging.CRITICAL}
+
+
+def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=False):
+    p.add_argument("-f", "--fastq-file", "--fq", "--fastq",
+                   dest="in_filename",
+                   help="Input file name (FastQ format; --fq/--fastq are "
+                        "the legacy spellings)")
+    p.add_argument("--fq1", "--fastq1", dest="in_filename1",
+                   help="Paired-end input, mate 1")
+    p.add_argument("--fq2", "--fastq2", dest="in_filename2",
+                   help="Paired-end input, mate 2")
+    p.add_argument("-o", "--outdir", dest="out_dirname",
+                   help="Output directory name")
+    p.add_argument("--num-threads", "--cpu-num-threads", type=int, default=2,
+                   help="Number of threads")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="Batch size (in number of alignments; default 10000)")
+    p.add_argument("--batch-list-size", type=int, default=0,
+                   help="Max read batches queued ahead of the engine "
+                        "(legacy knob; 0 = auto)")
+    if with_encoding:
+        p.add_argument("--quality-encoding", "--phred-quality",
+                       dest="quality_encoding_name",
+                       help="Encoding for quality scores: phred33, phred64 "
+                            "(legacy --phred-quality also accepts "
+                            "33/64/sanger/solexa)")
+    p.add_argument("--read-length-range",
+                   help="Read length range, eg. 80,110")
+    p.add_argument("--read-quality-range",
+                   help="Read quality range, eg. 20,40")
+    p.add_argument("--left-length", type=int, default=-1,
+                   help="Number of leftmost nucleotides to take into account "
+                        "to filter or trim")
+    p.add_argument("--left-quality-range",
+                   help="Quality range for the leftmost nucleotides, eg. 15,45")
+    p.add_argument("--right-length", type=int, default=-1,
+                   help="Number of rightmost nucleotides to take into account "
+                        "to filter or trim")
+    p.add_argument("--right-quality-range",
+                   help="Quality range for the rightmost nucleotides, eg. 10,60")
+    p.add_argument("--max-N", type=int, default=-1, dest="max_N",
+                   help="Maximum number of Ns in the sequences")
+    p.add_argument("--max-out-of-quality", type=int, default=-1,
+                   help="Maximum number of nucleotides out of the read quality range")
+    # engine / observability knobs (new)
+    p.add_argument("--t", "--time", dest="time_on", action="store_true",
+                   help="Print per-stage timing report")
+    p.add_argument("--log-level", type=int, default=2,
+                   help="Log level 1 (debug) .. 5 (fatal)")
+    p.add_argument("--v", "--verbose", dest="verbose", action="store_true",
+                   help="Verbose console logging (legacy --v, "
+                        "old/main_hpg_fastq_old.c:158)")
+    # legacy GPU geometry knobs (old/main_hpg_fastq_old.c:159-161):
+    # accepted for drop-in command-line parity, meaningless on a TPU mesh
+    # (scale-out is --sharded); a non-default value logs a warning
+    p.add_argument("--gpu-num-blocks", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--gpu-num-threads", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--gpu-num-devices", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    # legacy QC quality position window (old/main_hpg_fastq_old.c:
+    # 100-101,148-149; defaults 0/1024 = whole read; the usage banner
+    # spells it --begin-quality-nt, the getopt table --start-quality-nt —
+    # both accepted).  Reconstructed semantics [D8], see PARITY.md: the
+    # mean-quality and out-of-quality screens evaluate positions
+    # [begin, end) only.
+    p.add_argument("--start-quality-nt", "--begin-quality-nt", type=int,
+                   default=0,
+                   help="First nucleotide (0-based) of the quality screen "
+                        "window (legacy; default 0)")
+    p.add_argument("--end-quality-nt", type=int, default=1024,
+                   help="One past the last nucleotide of the quality screen "
+                        "window (legacy; default 1024)")
+    p.add_argument("--log-file", default=None, help="Log file path")
+    p.add_argument("--conf", default=None,
+                   help="key=value option file; file overrides command line")
+    p.add_argument("--device-batch-reads", type=int, default=0,
+                   help="Device batch rows (0 = auto from --batch-size)")
+    p.add_argument("--checkpoint", dest="checkpoint_path", default=None,
+                   help="Checkpoint file for resumable streaming")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="Batches between checkpoints (0 = off)")
+    p.add_argument("--profile-dir", default=None,
+                   help="Write a jax.profiler trace to this directory")
+    p.add_argument("--sharded", action="store_true",
+                   help="Data-parallel over all devices (multi-chip/"
+                        "multi-host mesh; every command, single- and "
+                        "paired-end)")
+    p.add_argument("--no-pallas", dest="use_pallas", action="store_false",
+                   help="Disable Pallas kernels (use the XLA-fused jnp path)")
+
+
+def _parse_conf(path: str) -> dict:
+    """Legacy ``--conf`` support: ``key = value ;`` / ``key=value`` lines
+    (``old/hpg-fastq.conf``); flags may appear alone on a line."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip().rstrip(";").strip()
+            if not line or line.startswith("#") or line.endswith("{") or line == "};":
+                continue
+            if line.endswith(":"):
+                continue
+            if "=" in line:
+                k, v = line.split("=", 1)
+                out[k.strip().lstrip("-")] = v.strip().strip('"')
+            else:
+                out[line.lstrip("-")] = True
+    return out
+
+
+def _apply_conf(ns: argparse.Namespace, conf: dict):
+    """File overrides command line (old/README:63-64)."""
+    mapping = {
+        "outdir": "out_dirname",
+        "fastq-file": "in_filename",
+        "fq": "in_filename",
+        "fastq": "in_filename",
+        "fq1": "in_filename1",
+        "fq2": "in_filename2",
+        "num-threads": "num_threads",
+        "cpu-num-threads": "num_threads",
+        "batch-size": "batch_size",
+        "batch-list-size": "batch_list_size",
+        "quality-encoding": "quality_encoding_name",
+        "read-length-range": "read_length_range",
+        "read-quality-range": "read_quality_range",
+        "left-length": "left_length",
+        "left-quality-range": "left_quality_range",
+        "right-length": "right_length",
+        "right-quality-range": "right_quality_range",
+        "max-N": "max_N",
+        "max-out-of-quality": "max_out_of_quality",
+        "kmers": "kmers_on",
+        "k": "k",
+        "gs-filename": "gs_filename",
+        "log-level": "log_level",
+        "log-file": "log_file",
+        "t": "time_on",
+        "time": "time_on",
+        # legacy prepro/filter keys (old/README:84-142): prepro uses the
+        # plain dests, stats/filter/edit carry the lg_ alias dests — first
+        # present attribute wins
+        "ltrim-nts": "ltrim_nts",
+        "rtrim-nts": "rtrim_nts",
+        "min-quality": ("min_quality", "lg_min_quality"),
+        "max-quality": ("max_quality", "lg_max_quality"),
+        "phred-quality": "quality_encoding_name",
+        "min-read-length": ("min_read_length", "lg_min_read_length"),
+        "max-read-length": ("lg_max_read_length",),
+        "max-n-per-read": ("lg_max_n_per_read",),
+        "max-nts-mismatch": ("lg_max_nts_mismatch",),
+        "lfilter-nts": ("lg_lfilter_nts",),
+        "rfilter-nts": ("lg_rfilter_nts",),
+        "start-quality-nt": "start_quality_nt",
+        "begin-quality-nt": "start_quality_nt",
+        "end-quality-nt": "end_quality_nt",
+    }
+    for key, val in conf.items():
+        attrs = mapping.get(key)
+        if attrs is None:
+            continue
+        if isinstance(attrs, str):
+            attrs = (attrs,)
+        attr = next((a for a in attrs if hasattr(ns, a)), None)
+        if attr is None:
+            continue
+        cur = getattr(ns, attr)
+        if isinstance(cur, bool) or val is True:
+            # libconfig-style booleans: a bare key or truthy word enables,
+            # false/0/off/no disables (bool("false") would enable!)
+            setattr(ns, attr, str(val).strip().lower()
+                    not in ("false", "0", "off", "no"))
+        elif isinstance(cur, int) or (cur is None and str(val).lstrip("-").isdigit()):
+            try:
+                setattr(ns, attr, int(val))
+            except ValueError:
+                setattr(ns, attr, val)
+        else:
+            setattr(ns, attr, val)
+
+
+def _ns_to_opts(ns: argparse.Namespace, cls):
+    opts = cls()
+    if ns.conf:
+        _apply_conf(ns, _parse_conf(ns.conf))
+    if hasattr(ns, "lg_min_quality"):
+        # AFTER the conf (file overrides command line) so conf-set legacy
+        # keys participate in the translation
+        _apply_legacy_filter_flags(ns)
+    if getattr(ns, "in_filename2", None) and not getattr(ns, "in_filename1",
+                                                         None):
+        raise OptionsError(
+            "Both pair ends files are mandatory, use both --fastq1 and "
+            "--fastq2 options"
+        )
+    if getattr(ns, "in_filename1", None) and not ns.in_filename:
+        opts.in_filename = ns.in_filename1
+        opts.in_filename2 = ns.in_filename2
+        if not ns.in_filename2:
+            raise OptionsError(
+                "Both pair ends files are mandatory, use both --fastq1 and "
+                "--fastq2 options"
+            )
+    else:
+        opts.in_filename = ns.in_filename
+        if ns.in_filename and (
+            getattr(ns, "in_filename1", None) or getattr(ns, "in_filename2", None)
+        ):
+            raise OptionsError(
+                "single-end and paired-end options are exclusive, use --fastq "
+                "OR --fastq1/--fastq2 options, not both"
+            )
+    opts.out_dirname = ns.out_dirname
+    opts.num_threads = ns.num_threads
+    if ns.num_threads:
+        from ..io.packer import set_num_threads
+
+        set_num_threads(ns.num_threads)
+    if ns.batch_size is not None:  # flag presence gates the auto reader batch
+        opts.batch_size = int(ns.batch_size)
+        opts.batch_size_set = True
+    opts.batch_list_size = ns.batch_list_size
+    opts.quality_encoding_name = getattr(ns, "quality_encoding_name", None)
+    opts.read_length_range = ns.read_length_range
+    opts.read_quality_range = ns.read_quality_range
+    opts.left_quality_range = ns.left_quality_range
+    opts.right_quality_range = ns.right_quality_range
+    opts.criteria.left_length = ns.left_length
+    opts.criteria.right_length = ns.right_length
+    opts.criteria.max_N = ns.max_N
+    opts.criteria.max_out_of_quality = ns.max_out_of_quality
+    opts.time_on = ns.time_on
+    opts.log_level = ns.log_level
+    opts.device_batch_reads = ns.device_batch_reads
+    opts.checkpoint_path = ns.checkpoint_path
+    opts.checkpoint_every = ns.checkpoint_every
+    opts.profile_dir = ns.profile_dir
+    opts.use_pallas = ns.use_pallas
+    opts.sharded = getattr(ns, "sharded", False)
+
+    begin_nt = getattr(ns, "start_quality_nt", 0)
+    end_nt = getattr(ns, "end_quality_nt", 1024)
+    if begin_nt < 0 or end_nt < 0:
+        raise OptionsError(
+            "\nError: --start-quality-nt/--end-quality-nt must not be "
+            "negative"
+        )
+    opts.criteria.begin_quality_nt = begin_nt
+    opts.criteria.end_quality_nt = end_nt
+
+    logging.basicConfig(
+        filename=ns.log_file or "hpg-fastq.log",
+        filemode="w",
+        level=_LOG_LEVELS.get(ns.log_level, logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    if getattr(ns, "verbose", False):
+        # legacy --v mirrors logging to the console (log_verbose global,
+        # src/hpg-fastq.c:39-41)
+        logging.getLogger().addHandler(logging.StreamHandler())
+    for knob in ("gpu_num_blocks", "gpu_num_threads", "gpu_num_devices"):
+        if getattr(ns, knob, None) is not None:
+            logging.getLogger("hpgq").warning(
+                "--%s has no effect on a TPU mesh (scale-out is --sharded)",
+                knob.replace("_", "-"),
+            )
+    return opts
+
+
+def _add_legacy_filter_aliases(parser) -> None:
+    """Register the legacy getopt filter-flag spellings
+    (old/README:121-142) — on stats, filter, AND edit, like the legacy
+    single binary, whose getopt table was shared across actions
+    (old/main_hpg_fastq_old.c:131-192).  Translated onto the modern range
+    strings in ``_apply_legacy_filter_flags`` so display/validation see
+    one form."""
+    for legacy in ("--min-read-length", "--max-read-length",
+                   "--max-n-per-read", "--max-nts-mismatch",
+                   "--lfilter-nts", "--rfilter-nts",
+                   "--min-quality", "--max-quality"):
+        parser.add_argument(legacy, type=int, default=None,
+                            dest="lg_" + legacy[2:].replace("-", "_"),
+                            help="Legacy alias (see MIGRATION.md)")
+
+
+def _apply_legacy_filter_flags(ns) -> None:
+    """Map the legacy getopt filter flags (old/README:121-142) onto the
+    modern range-string options, which display/validate/parse as usual.
+    Modern flags win when both forms are given; legacy quality bounds are
+    clamped like the legacy parser (>=10 / <=70,
+    old/main_hpg_fastq_old.c:289-305)."""
+
+    def rng(lo, hi):
+        return "%s,%s" % ("" if lo is None else lo, "" if hi is None else hi)
+
+    lmin, lmax = ns.lg_min_read_length, ns.lg_max_read_length
+    if (lmin is not None or lmax is not None) and not ns.read_length_range:
+        ns.read_length_range = rng(lmin, lmax)
+    qmin, qmax = ns.lg_min_quality, ns.lg_max_quality
+    if qmin is not None:
+        qmin = max(qmin, 10)
+    if qmax is not None:
+        qmax = min(qmax, 70)
+    if (qmin is not None or qmax is not None) and not ns.read_quality_range:
+        ns.read_quality_range = rng(qmin, qmax)
+    if ns.lg_max_n_per_read is not None and ns.max_N < 0:
+        ns.max_N = ns.lg_max_n_per_read
+    if ns.lg_max_nts_mismatch is not None and ns.max_out_of_quality < 0:
+        ns.max_out_of_quality = ns.lg_max_nts_mismatch
+    # window screens: legacy reuses min/max-quality as the window bounds,
+    # falling back to its defaults 20,60 (old/main_hpg_fastq_old.c:96-97)
+    wrange = rng(20 if qmin is None else qmin, 60 if qmax is None else qmax)
+    if ns.lg_lfilter_nts is not None and ns.left_length < 0:
+        ns.left_length = ns.lg_lfilter_nts
+        if not ns.left_quality_range:
+            ns.left_quality_range = wrange
+    if ns.lg_rfilter_nts is not None and ns.right_length < 0:
+        ns.right_length = ns.lg_rfilter_nts
+        if not ns.right_quality_range:
+            ns.right_quality_range = wrange
+
+
+def _results_banner(lines):
+    print("\n")
+    print("RESULTS")
+    print("=================================================")
+    for line in lines:
+        print(line)
+    print("=================================================")
+
 
 
 def usage(exec_name: str) -> str:
@@ -45,7 +383,7 @@ def usage(exec_name: str) -> str:
 
 
 def main(argv=None) -> int:
-    from hpgq.io.fastq import FastqParseError
+    from ..io.fastq import FastqParseError
 
     from ..device import DeviceUnavailable
 

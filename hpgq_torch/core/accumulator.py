@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from hpgq.core.counters import StatsCounters
+from ..core.counters import StatsCounters
 
 from ..kernels.stats_torch import MIN_LENGTH_INIT, zero_partials
 from ..kernels.step import make_stats_step, make_stats_step2u

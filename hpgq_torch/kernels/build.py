@@ -26,6 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("stats_k1.cu", "stats_k2.cu")
+HEADERS = ("stats_common.cuh",)  # included by the sources
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 # no --use_fast_math: the per-read mean must be the IEEE-rounded quotient
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,8 +42,7 @@ class KernelBuildError(RuntimeError):
 
 
 class K1Crit(ctypes.Structure):
-    """Mirror of ``struct K1Crit`` in ``csrc/stats_k1.cu`` (and the identical
-    one in ``csrc/stats_k2.cu``)."""
+    """Mirror of ``struct K1Crit`` in ``csrc/stats_common.cuh``."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "on", "min_len", "max_len", "min_q", "max_q", "oq_on", "max_oq",
@@ -64,7 +64,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -117,13 +117,21 @@ def load(verbose: bool = False):
         except OSError as e:
             raise KernelBuildError("cannot load %s: %s" % (path, e)) from e
         p, i = ctypes.c_void_p, ctypes.c_int
-        # K1 and K2 take the same arguments (K2's per-block f32 partials
-        # are per row)
-        for fn in (lib.hpgq_k1_launch, lib.hpgq_k2_launch):
-            fn.argtypes = [p, p, p, p, i, i, i, K1Crit,
-                           p, p, p, p, p, p, p, p, p, p]
+        # inputs, sizes, criteria, then the 7 int64 outputs (scalars ...
+        # bpn), then each entry's own outputs, then the stream
+        lib.hpgq_k1_launch.argtypes = [p, p, p, p, i, i, i, i, K1Crit,
+                                       *[p] * 7, p, p, p, p, p]
+        lib.hpgq_k1_launch_2u.argtypes = [p, p, i, p, i, i, i, i, i, K1Crit,
+                                          *[p] * 7, p, p, p, p, p]
+        lib.hpgq_k2_launch.argtypes = [p, p, p, p, i, i, i, K1Crit,
+                                       *[p] * 7, p, p, p, p]
+        for fn in (lib.hpgq_k1_launch, lib.hpgq_k1_launch_2u,
+                   lib.hpgq_k2_launch):
             fn.restype = i
-        lib.hpgq_k1_rows_per_block.restype = i
+        lib.hpgq_k1_tiles.argtypes = [i, i, i, i, i]
+        lib.hpgq_k1_tiles.restype = i
+        lib.hpgq_k2_scratch_slots.argtypes = [i]
+        lib.hpgq_k2_scratch_slots.restype = ctypes.c_longlong
         lib.hpgq_k1_error_string.argtypes = [i]
         lib.hpgq_k1_error_string.restype = ctypes.c_char_p
         _lib = lib

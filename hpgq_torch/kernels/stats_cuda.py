@@ -1,15 +1,18 @@
 """K1/K2 wrappers and dispatch: fused stats + inline-filter partials.
 
-:func:`batch_partials_cuda` launches the hand-written kernel
-``csrc/stats_k1.cu`` (which replaces ``hpgq/kernels/stats_pallas.py:
-_stats_kernel``), :func:`batch_partials_cuda_long` launches
-``csrc/stats_k2.cu`` (which replaces ``_stats_kernel_blockwise``); both
-return the partials dict of ``stats_pallas.batch_partials_pallas``
-(``stats_pallas.py:253-273``), int64.  :func:`make_batch_partials` is the
-port of ``stats_pallas.make_batch_partials`` (``:575-611``): K1 for CUDA
-tensors at lcap <= 4096, K2 above (with no upper limit), the plain twin
+:func:`batch_partials_cuda` launches K1's plain entry and
+:func:`batch_partials_cuda_2u` its 2u entry (``csrc/stats_k1.cu``, which
+replaces ``hpgq/kernels/stats_pallas.py:_stats_kernel``);
+:func:`batch_partials_cuda_long` launches ``csrc/stats_k2.cu`` (which
+replaces ``_stats_kernel_blockwise``).  All return the partials dict of
+``stats_pallas.batch_partials_pallas`` (``stats_pallas.py:253-273``),
+int64.  :func:`make_batch_partials` is the port of
+``stats_pallas.make_batch_partials`` (``:575-611``): K1 for CUDA tensors
+at lcap <= 4096, K2 above (with no upper limit), the plain twin
 (``stats_torch.fused_partials``) for CPU tensors, and the k-mer pass on
-the pass mask of whichever ran.  Nothing falls back from one to another.
+the pass mask of whichever ran.  :func:`batch_partials_2u` takes a 2u
+batch straight from the wire: K1's 2u entry on CUDA, the decode and the
+plain twin on the CPU.  Nothing falls back from one to another.
 """
 
 from __future__ import annotations
@@ -18,15 +21,16 @@ import threading
 
 import torch
 
-from hpgq.constants import MAX_VALUE, MIN_VALUE
-from hpgq.core.counters import GC_BINS, QUAL_BINS
-
+from ..constants import MAX_VALUE, MIN_VALUE
+from ..core.counters import GC_BINS, QUAL_BINS
 from .stats_torch import MIN_LENGTH_INIT, fused_partials, kmer_partials
+from .wire_torch import pad_wire_cols, wire_unbits2u
 
 MAX_LCAP = 4096  # K1's limit; longer reads go through K2
 
-LAUNCHES = 0  # K1 launches by batch_partials_cuda since the last reset
-LAUNCHES_K2 = 0  # K2 launches by batch_partials_cuda_long since the last reset
+LAUNCHES = 0  # K1 plain-entry launches since the last reset
+LAUNCHES_2U = 0  # K1 2u-entry launches since the last reset
+LAUNCHES_K2 = 0  # K2 calls (launch A, and B with criteria) since the reset
 _count_lock = threading.Lock()
 
 _NUM_READS, _ACC_LENGTH, _MIN_LEN, _MAX_LEN, _NUM_PASSED, _NUM_FAILED = range(6)
@@ -60,21 +64,22 @@ def _check(name, t, dtype, shape, device):
     if t.dtype != dtype:
         raise ValueError("%s has dtype %s, expected %s" % (name, t.dtype,
                                                           dtype))
-    if tuple(t.shape) != shape:
+    if shape is not None and tuple(t.shape) != shape:
         raise ValueError("%s has shape %s, expected %s" % (
             name, tuple(t.shape), shape))
     if not t.is_contiguous():
         raise ValueError("%s is not contiguous" % name)
 
 
-def _launch(kernel: str, codes, quals, lens, valid, lcap: int, phred: int,
-            crit) -> dict:
-    """Check the inputs, allocate the outputs, launch ``kernel`` ("k1" or
-    "k2") on ``torch.cuda.current_stream()`` and count the launch."""
-    global LAUNCHES, LAUNCHES_K2
-    if codes.device.type != "cuda":
+def _cuda_device(kernel: str, t):
+    if t.device.type != "cuda":
         raise ValueError("the %s wrapper needs CUDA tensors, got %s"
-                         % (kernel.upper(), codes.device))
+                         % (kernel, t.device))
+    return t.device
+
+
+def _check_rows(codes, quals, lens, valid, lcap: int):
+    """Check the plain entries' inputs; returns ``(B, L)``."""
     if codes.dim() != 2:
         raise ValueError("codes must be [B, L], got %s" % (tuple(codes.shape),))
     B, L = codes.shape
@@ -85,62 +90,89 @@ def _launch(kernel: str, codes, quals, lens, valid, lcap: int, phred: int,
     _check("quals", quals, torch.uint8, (B, L), dev)
     _check("lens", lens, torch.int32, (B,), dev)
     _check("valid", valid, torch.bool, (B,), dev)
+    return B, L
 
-    from .build import load
 
-    lib = load()
-    # K1 sums the mean quality per block of rows, K2 per row
-    nf = max(1, -(-B // lib.hpgq_k1_rows_per_block())) if kernel == "k1" \
-        else B
-    launch = lib.hpgq_k1_launch if kernel == "k1" else lib.hpgq_k2_launch
-    # one zeroed int64 buffer, cut into the outputs
-    sizes = (8, lcap + 1, QUAL_BINS, GC_BINS, lcap, lcap, 5 * lcap)
-    ints = torch.zeros(sum(sizes), dtype=torch.int64, device=dev)
-    scal, lh, qh, gh, cov, qpn, bpn = torch.split(ints, sizes)
-    scal[_MIN_LEN] = MIN_LENGTH_INIT
-    fq = torch.zeros(nf, dtype=torch.float32, device=dev)
-    passed = torch.zeros(B, dtype=torch.bool, device=dev)
-    if B:  # an empty batch has nothing to launch: the zeros are its result
-        rc = launch(
-            codes.data_ptr(), quals.data_ptr(), lens.data_ptr(),
-            valid.data_ptr(), B, L, lcap, crit_struct(crit, phred),
-            scal.data_ptr(), lh.data_ptr(), qh.data_ptr(), gh.data_ptr(),
-            cov.data_ptr(), qpn.data_ptr(), bpn.data_ptr(), fq.data_ptr(),
-            passed.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError("%s launch failed: %s (cudaError %d)" % (
-                kernel.upper(), lib.hpgq_k1_error_string(rc).decode(), rc))
-        with _count_lock:
-            if kernel == "k1":
-                LAUNCHES += 1
-            else:
-                LAUNCHES_K2 += 1
-    bpn = bpn.view(5, lcap)
-    p = {
-        "num_reads": scal[_NUM_READS],
-        "acc_length": scal[_ACC_LENGTH],
-        "min_length": scal[_MIN_LEN],
-        "max_length": scal[_MAX_LEN],
-        # f32 partial sums in a fixed order -> the same value every run
-        "acc_quality": fq.sum(),
-        "base_totals": bpn.sum(dim=1),
-        "length_hist": lh,
-        "quality_hist": qh,
-        "gc_hist": gh,
-        "cov_per_nt": cov,
-        "qual_per_nt": qpn,
-        "base_per_nt": bpn,
-        "_passed_mask": passed,
-    }
-    if crit is not None:
-        p["_num_passed"] = scal[_NUM_PASSED]
-        p["_num_failed"] = scal[_NUM_FAILED]
-    return p
+class _Outputs:
+    """Every output of a launch cut from ONE zeroed device buffer: the int64
+    partials (scalars [8], length/quality/GC histograms, coverage, quality
+    and base sums per position, base totals [5]) and ``n_i64_extra`` int64
+    scratch slots, ``n_f32`` floats, and the bool pass mask [B]."""
+
+    def __init__(self, dev, lcap: int, B: int, n_f32: int,
+                 n_i64_extra: int = 0):
+        sizes = (8, lcap + 1, QUAL_BINS, GC_BINS, lcap, lcap, 5 * lcap, 5,
+                 n_i64_extra)
+        n64 = sum(sizes)
+        buf = torch.zeros(8 * n64 + 4 * n_f32 + B, dtype=torch.uint8,
+                          device=dev)
+        ints = buf[:8 * n64].view(torch.int64)
+        (self.scal, self.lh, self.qh, self.gh, self.cov, self.qpn, bpn,
+         self.bt, self.scratch) = torch.split(ints, sizes)
+        self.bpn = bpn.view(5, lcap)
+        self.f32 = buf[8 * n64:8 * n64 + 4 * n_f32].view(torch.float32)
+        self.passed = buf[8 * n64 + 4 * n_f32:].view(torch.bool)
+
+    def ptrs(self):
+        """The output pointers in the launchers' order (scalars ...
+        bpn)."""
+        return (self.scal.data_ptr(), self.lh.data_ptr(), self.qh.data_ptr(),
+                self.gh.data_ptr(), self.cov.data_ptr(), self.qpn.data_ptr(),
+                self.bpn.data_ptr())
+
+    def partials(self, acc_quality, base_totals, crit) -> dict:
+        p = {
+            "num_reads": self.scal[_NUM_READS],
+            "acc_length": self.scal[_ACC_LENGTH],
+            "min_length": self.scal[_MIN_LEN],
+            "max_length": self.scal[_MAX_LEN],
+            "acc_quality": acc_quality,
+            "base_totals": base_totals,
+            "length_hist": self.lh,
+            "quality_hist": self.qh,
+            "gc_hist": self.gh,
+            "cov_per_nt": self.cov,
+            "qual_per_nt": self.qpn,
+            "base_per_nt": self.bpn,
+            "_passed_mask": self.passed,
+        }
+        if crit is not None:
+            p["_num_passed"] = self.scal[_NUM_PASSED]
+            p["_num_failed"] = self.scal[_NUM_FAILED]
+        return p
+
+
+def _count(kernel: str) -> None:
+    global LAUNCHES, LAUNCHES_2U, LAUNCHES_K2
+    with _count_lock:
+        if kernel == "K1":
+            LAUNCHES += 1
+        elif kernel == "K1 2u":
+            LAUNCHES_2U += 1
+        else:
+            LAUNCHES_K2 += 1
+
+
+def _raise_if(rc: int, kernel: str, lib) -> None:
+    if rc != 0:
+        raise RuntimeError("%s launch failed: %s (cudaError %d)" % (
+            kernel, lib.hpgq_k1_error_string(rc).decode(), rc))
+
+
+def _k1_outputs(lib, dev, wire2u: int, B: int, L: int, lcap: int, W: int):
+    nt = lib.hpgq_k1_tiles(wire2u, B, L, lcap, W) if B else 0
+    if nt < 0:
+        raise ValueError("K1 has no shared-memory layout for L %d, lcap %d"
+                         % (L, lcap))
+    out = _Outputs(dev, lcap, B, nt + 1)
+    if not B:  # nothing to launch: the zeros are the result, min its init
+        out.scal[_MIN_LEN] = MIN_LENGTH_INIT
+    return out, out.f32[:nt], out.f32[nt]
 
 
 def batch_partials_cuda(codes, quals, lens, valid, lcap: int, phred: int,
                         crit=None) -> dict:
-    """Launch K1 on ``torch.cuda.current_stream()``.
+    """Launch K1's plain entry on ``torch.cuda.current_stream()``.
 
     ``codes`` int8 [B, L], ``quals`` uint8 [B, L], ``lens`` int32 [B],
     ``valid`` bool [B], all contiguous on one CUDA device; ``L <= lcap <=
@@ -149,7 +181,63 @@ def batch_partials_cuda(codes, quals, lens, valid, lcap: int, phred: int,
         raise ValueError("K1 takes lcap <= %d, got %d; longer reads go "
                          "through K2 (batch_partials_cuda_long)"
                          % (MAX_LCAP, lcap))
-    return _launch("k1", codes, quals, lens, valid, lcap, phred, crit)
+    dev = _cuda_device("K1", codes)
+    B, L = _check_rows(codes, quals, lens, valid, lcap)
+    from .build import load
+
+    lib = load()
+    out, tiles, acc_q = _k1_outputs(lib, dev, 0, B, L, lcap, 0)
+    if B:
+        # the kernel stages rows by 16-byte copies: rows of a multiple of
+        # 16 bytes, 16-byte aligned (the packers' widths are already)
+        ld = -(-max(L, 1) // 16) * 16
+        if ld != L or codes.data_ptr() % 16 or quals.data_ptr() % 16:
+            codes = torch.nn.functional.pad(codes, (0, ld - L))
+            quals = torch.nn.functional.pad(quals, (0, ld - L))
+        _raise_if(lib.hpgq_k1_launch(
+            codes.data_ptr(), quals.data_ptr(), lens.data_ptr(),
+            valid.data_ptr(), B, L, ld, lcap, crit_struct(crit, phred),
+            *out.ptrs(), out.bt.data_ptr(), tiles.data_ptr(),
+            acc_q.data_ptr(), out.passed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "K1", lib)
+        _count("K1")
+    return out.partials(acc_q, out.bt, crit)
+
+
+def batch_partials_cuda_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,
+                           phred: int, crit=None) -> dict:
+    """Launch K1's 2u entry on ``torch.cuda.current_stream()``: the
+    partials of :func:`batch_partials_cuda` over the decoded batch, read
+    straight from the 2u wire (``buf`` uint8 [B, W], ``exc`` int32
+    exceptions in ascending order as the packers write them, ``pal`` uint8
+    [4]; rows below ``n_valid`` have length ``L``)."""
+    if lcap > MAX_LCAP or L > lcap:
+        raise ValueError("the K1 2u entry takes L <= lcap <= %d, got L %d, "
+                         "lcap %d" % (MAX_LCAP, L, lcap))
+    dev = _cuda_device("K1 2u", buf)
+    if buf.dim() != 2 or exc.dim() != 1:
+        raise ValueError("buf must be [B, W] and exc 1-D, got %s and %s"
+                         % (tuple(buf.shape), tuple(exc.shape)))
+    B, W = buf.shape
+    _check("buf", buf, torch.uint8, (B, W), dev)
+    _check("exc", exc, torch.int32, None, dev)
+    _check("pal", pal, torch.uint8, (4,), dev)
+    if not 0 <= n_valid <= B or L > 2 * W:
+        raise ValueError("n_valid %d or L %d do not fit a [%d, %d] 2u batch"
+                         % (n_valid, L, B, W))
+    from .build import load
+
+    lib = load()
+    out, tiles, acc_q = _k1_outputs(lib, dev, 1, B, L, lcap, W)
+    if B:
+        _raise_if(lib.hpgq_k1_launch_2u(
+            buf.data_ptr(), exc.data_ptr(), exc.shape[0], pal.data_ptr(),
+            n_valid, B, W, L, lcap, crit_struct(crit, phred), *out.ptrs(),
+            out.bt.data_ptr(), tiles.data_ptr(), acc_q.data_ptr(),
+            out.passed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "K1 2u", lib)
+        _count("K1 2u")
+    return out.partials(acc_q, out.bt, crit)
 
 
 def batch_partials_cuda_long(codes, quals, lens, valid, lcap: int,
@@ -157,7 +245,38 @@ def batch_partials_cuda_long(codes, quals, lens, valid, lcap: int,
     """Launch K2 on ``torch.cuda.current_stream()``: the contract of
     :func:`batch_partials_cuda` for any ``L <= lcap`` (no upper limit).
     Raises on bad inputs, and if a launch is refused."""
-    return _launch("k2", codes, quals, lens, valid, lcap, phred, crit)
+    dev = _cuda_device("K2", codes)
+    B, L = _check_rows(codes, quals, lens, valid, lcap)
+    from .build import load
+
+    lib = load()
+    out = _Outputs(dev, lcap, B, B, lib.hpgq_k2_scratch_slots(B))
+    out.scal[_MIN_LEN] = MIN_LENGTH_INIT
+    if B:
+        _raise_if(lib.hpgq_k2_launch(
+            codes.data_ptr(), quals.data_ptr(), lens.data_ptr(),
+            valid.data_ptr(), B, L, lcap, crit_struct(crit, phred),
+            *out.ptrs(), out.scratch.data_ptr(), out.f32.data_ptr(),
+            out.passed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "K2", lib)
+        _count("K2")
+    # f32 per-row means summed in a fixed order -> the same value every run
+    return out.partials(out.f32.sum(), out.bpn.sum(dim=1), crit)
+
+
+def batch_partials_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,
+                      phred: int, crit=None) -> dict:
+    """The partials of one 2u batch: K1's 2u entry for CUDA tensors, the
+    decode (``wire_unbits2u`` + ``pad_wire_cols``) and the plain twin for
+    CPU tensors."""
+    if buf.device.type == "cuda":
+        return batch_partials_cuda_2u(buf, exc, pal, n_valid, L, lcap, phred,
+                                      crit)
+    if buf.device.type != "cpu":
+        raise ValueError("no stats kernel for device %s" % buf.device)
+    codes, quals, lens, valid = wire_unbits2u(buf, exc, pal, n_valid, L=L)
+    codes, quals = pad_wire_cols(codes, quals, lcap)
+    return fused_partials(codes, quals, lens, valid, lcap, phred, crit)
 
 
 def make_batch_partials(lcap: int, phred: int, crit=None,

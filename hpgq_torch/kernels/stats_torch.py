@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from hpgq.constants import (
+from ..constants import (
     BASE_C,
     BASE_G,
     BASE_N,
@@ -38,7 +38,7 @@ from hpgq.constants import (
     NUM_KMERS,
     PHRED33,
 )
-from hpgq.core.counters import GC_BINS, QUAL_BINS
+from ..core.counters import GC_BINS, QUAL_BINS
 
 MIN_LENGTH_INIT = 100000  # reference init, src/stats_fastq.c:24
 

@@ -1,5 +1,10 @@
 """Per-batch stats steps: wire decode -> pad -> K1/K2 partials -> merge.
 
+A 2u batch on CUDA skips the decode: K1's 2u entry reads the wire itself
+(:func:`~hpgq_torch.kernels.stats_cuda.batch_partials_2u`), unless a
+decoded tensor is needed anyway (``--kmers``, a paired filter's pair
+verdict, or a session grown past K1's 4096 columns, where K2 runs).
+
 Torch counterparts of ``stats_jnp.make_stats_step`` (plain and bitpack
 wires), ``make_stats_step2u``, ``make_paired_stats_step`` and
 ``make_paired_stats_step2u`` (``stats_jnp.py:732-798``, ``:816-1022``).
@@ -14,7 +19,7 @@ from __future__ import annotations
 import collections
 import threading
 
-from .stats_cuda import make_batch_partials
+from .stats_cuda import MAX_LCAP, batch_partials_2u, make_batch_partials
 from .stats_torch import merge_into, verdicts
 from .wire_torch import (
     bitwire_kind,
@@ -28,6 +33,9 @@ from .wire_torch import (
 # "7bit", "plain"), one per mate on the paired path — lets a run show
 # which decoders carried it
 WIRE_BATCHES = collections.Counter()
+# batches decoded into codes/quals tensors since the last reset, by
+# (device type, tier): shows that a 2u batch on CUDA went to K1 undecoded
+DECODED = collections.Counter()
 _count_lock = threading.Lock()
 TIER_OF_QBITS = {2: "2q", 6: "6bit", 7: "7bit"}
 
@@ -50,19 +58,24 @@ def unwire(payload, lcap: int):
     if isinstance(payload, tuple) and len(payload) == 4:
         count_batch(WIRE_BATCHES, "plain")
         return payload
-    if isinstance(payload, tuple) and isinstance(payload[0], str):
+    if _is_2u(payload):
         _, buf, exc, pal, n_valid, L = payload
-        count_batch(WIRE_BATCHES, "2u")
+        tier = "2u"
         codes, quals, lens, valid = wire_unbits2u(buf, exc, pal, n_valid, L=L)
     elif isinstance(payload, tuple):
-        count_batch(WIRE_BATCHES, "2c")
+        tier = "2c"
         codes, quals, lens, valid = wire_unbits2c(*payload)
     else:
-        count_batch(WIRE_BATCHES,
-                    TIER_OF_QBITS[bitwire_kind(payload.shape[1])[0]])
+        tier = TIER_OF_QBITS[bitwire_kind(payload.shape[1])[0]]
         codes, quals, lens, valid = wire_unbits(payload)
+    count_batch(WIRE_BATCHES, tier)
+    count_batch(DECODED, (codes.device.type, tier))
     codes, quals = pad_wire_cols(codes, quals, lcap)
     return codes, quals, lens, valid
+
+
+def _is_2u(payload) -> bool:
+    return isinstance(payload, tuple) and isinstance(payload[0], str)
 
 
 def _merge(acc, p):
@@ -102,12 +115,23 @@ def make_stats_step(lcap: int, phred: int, crit=None, wire=None,
 def make_stats_step2u(lcap: int, phred: int, crit, L: int,
                       kmers_on: bool = False):
     """``step(acc, buf, exc, pal, n_valid)`` over the 2u (uniform) wire;
-    ``L`` is the uniform read length, which the wire width cannot carry."""
-    pfn = make_batch_partials(lcap, phred, crit, kmers_on)
+    ``L`` is the uniform read length, which the wire width cannot carry.
+    The batch goes to :func:`batch_partials_2u` undecoded, unless the
+    k-mer pass (which reads codes) is on or ``lcap`` is past K1's limit
+    (K2 takes decoded tensors): then it is decoded first."""
+    if kmers_on or lcap > MAX_LCAP:
+        pfn = make_batch_partials(lcap, phred, crit, kmers_on)
+
+        def step_kmers(acc, buf, exc, pal, n_valid):
+            return _merge(acc, pfn(*unwire(("2u", buf, exc, pal, n_valid, L),
+                                           lcap)))
+
+        return step_kmers
 
     def step(acc, buf, exc, pal, n_valid):
-        return _merge(acc, pfn(*unwire(("2u", buf, exc, pal, n_valid, L),
-                                       lcap)))
+        count_batch(WIRE_BATCHES, "2u")
+        return _merge(acc, batch_partials_2u(buf, exc, pal, n_valid, L, lcap,
+                                             phred, crit))
 
     return step
 
@@ -121,10 +145,20 @@ def make_paired_stats_step(lcap: int, phred: int, crit=None,
     The pair counts when both mates are valid and, with ``crit``, both
     pass; K1/K2 (or the twin) then run with criteria off and that
     selection as ``valid`` on each mate, and the per-pair passed/failed
-    tallies fold into ``acc1``."""
+    tallies fold into ``acc1``.  With no filter and no k-mers, two 2u
+    mates go to :func:`batch_partials_2u` undecoded (within K1's lcap):
+    their pair selection is the first ``min(n_valid1, n_valid2)`` rows."""
     pfn = make_batch_partials(lcap, phred, None, kmers_on)
+    undecoded = crit is None and not kmers_on and lcap <= MAX_LCAP
 
     def step(acc1, acc2, in1, in2):
+        if undecoded and _is_2u(in1) and _is_2u(in2):
+            n = min(in1[4], in2[4])
+            for acc, (_, buf, exc, pal, _, L) in ((acc1, in1), (acc2, in2)):
+                count_batch(WIRE_BATCHES, "2u")
+                _merge(acc, batch_partials_2u(buf, exc, pal, n, L, lcap,
+                                              phred))
+            return acc1, acc2
         c1, q1, l1, v1 = unwire(in1, lcap)
         c2, q2, l2, v2 = unwire(in2, lcap)
         pair = v1 & v2

@@ -4,10 +4,11 @@ Torch twins of ``hpgq.kernels.stats_jnp``'s ``_bit_fields``, ``_wire_tail``,
 ``wire_unbits``, ``_unbits6``, ``_unbits2q``, ``wire_unbits2c``,
 ``wire_unbits2u``, ``pad_wire_cols``, ``bitwire_kind``,
 ``bitwire_logical_len``, ``qnwire_logical_len`` and ``wire_unqn8``
-(``stats_jnp.py:469-729``).  The host packers are
-shared (``hpgq.io.packer`` / ``hpgq.io.native``); these functions take
-their buffers on any device and return ``(codes int8, quals uint8,
-lens int32, valid bool)`` byte-equal to ``hpgq.io.packer.pack_block``.
+(``stats_jnp.py:469-729``).  The host packers are the port's copies of
+``hpgq``'s (``hpgq_torch.io.packer`` / ``hpgq_torch.io.native``), bit for
+bit the same layouts; these functions take their buffers on any device and
+return ``(codes int8, quals uint8, lens int32, valid bool)`` byte-equal to
+``hpgq_torch.io.packer.pack_block``.
 
 Two details differ from the jnp code because torch has no ``mode="drop"``
 scatter: the 2c/2u exception restore scatters into a flat buffer one
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from hpgq.io.native import bitwire2c_width, bitwire2q_width, bitwire6_width
+from ..io.native import bitwire2c_width, bitwire2q_width, bitwire6_width
 
 
 def bitwire_kind(row_width: int):
@@ -193,8 +194,8 @@ def qnwire_logical_len(W: int) -> int:
 
 
 def wire_unqn8(buf):
-    """Decode a qn8 buffer (``hpgq.io.packer.pack_block_qnwire``): one byte
-    per base, ``(qual & 0x7F) | (is_N << 7)``, then the row tail.  Codes
+    """Decode a qn8 buffer (``hpgq_torch.io.packer.pack_block_qnwire``): one
+    byte per base, ``(qual & 0x7F) | (is_N << 7)``, then the row tail.  Codes
     come out as 4 (N) or 0: all the verdict reads of the sequence is its N
     count, so never feed these codes to a stats step."""
     L = qnwire_logical_len(buf.shape[1])

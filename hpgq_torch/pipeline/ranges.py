@@ -1,6 +1,6 @@
 """Record-aligned byte ranges of a FASTQ file, for concurrent shard readers.
 
-Jax-free copies of ``_align_to_record``, ``range_splittable``,
+Copies of ``_align_to_record``, ``range_splittable``,
 ``_open_logical``, ``count_newlines_in_range``, ``record_offsets``,
 ``split_paired_ranges`` and ``split_byte_ranges`` from
 ``hpgq/dist/mesh.py`` (``:325-504``), whose module imports jax at load
@@ -10,6 +10,9 @@ time.
 from __future__ import annotations
 
 import os
+
+from ..io.bgzf import BgzfFile, is_bgzf
+from ..io.fastq import _find_newlines
 
 
 def _align_to_record(f, pos: int, scan_limit: int = 1 << 30) -> int:
@@ -47,8 +50,6 @@ def range_splittable(path: str) -> bool:
     with open(path, "rb") as f:
         if f.read(2) != b"\x1f\x8b":
             return True
-    from hpgq.io.bgzf import is_bgzf
-
     return is_bgzf(path)
 
 
@@ -58,8 +59,6 @@ def _open_logical(path: str):
     with open(path, "rb") as probe:
         gz = probe.read(2) == b"\x1f\x8b"
     if gz:
-        from hpgq.io.bgzf import BgzfFile
-
         f = BgzfFile(path)
         return f, f.logical_size
     return open(path, "rb"), os.path.getsize(path)
@@ -67,8 +66,6 @@ def _open_logical(path: str):
 
 def count_newlines_in_range(path: str, start: int, end: int) -> int:
     """Newlines in the logical byte range ``[start, end)``."""
-    from hpgq.io.fastq import _find_newlines
-
     f, _ = _open_logical(path)
     try:
         f.seek(start)
@@ -88,8 +85,6 @@ def count_newlines_in_range(path: str, start: int, end: int) -> int:
 def record_offsets(path: str, record_indices) -> "list[int]":
     """Logical byte offset of the start of each requested record, by one
     streaming newline scan; indices past the end map to the file's end."""
-    from hpgq.io.fastq import _find_newlines
-
     remaining = sorted({int(r) for r in record_indices if int(r) != 0})
     out = {0: 0}
     if remaining:

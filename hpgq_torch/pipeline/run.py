@@ -36,13 +36,22 @@ from typing import Optional
 
 import torch
 
-from hpgq.constants import DEFAULT_BATCH_SIZE
-from hpgq.io.fastq import AsyncSpanPump, FastqReader, FastqWriter
-from hpgq.io.packer import round_up
-from hpgq.options import FilterOptions, StatsOptions
-from hpgq.pipeline.prefetch import prefetched
-from hpgq.report.stats_report import stats_report
-from hpgq.utils.timers import StageTimers
+from ..constants import DEFAULT_BATCH_SIZE
+from ..io.fastq import (
+    AsyncSpanPump,
+    FastqReader,
+    FastqWriter,
+    coalesce_blocks,
+)
+from ..io.packer import round_up
+from ..options import FilterOptions, StatsOptions
+from ..pipeline.prefetch import prefetched
+from ..report.stats_report import stats_report
+from ..utils.checkpoint import (
+    load_counters_checkpoint,
+    save_counters_checkpoint,
+)
+from ..utils.timers import StageTimers
 
 from ..device import resolve_device
 from ..kernels.stats_torch import verdicts
@@ -96,8 +105,6 @@ def _coalesced(opts, reader, device):
     tgt = _coalesce_reads(opts, device)
     if not tgt:
         return reader
-    from hpgq.io.fastq import coalesce_blocks
-
     return coalesce_blocks(iter(reader), tgt)
 
 
@@ -383,13 +390,8 @@ def _check_ported(opts, command: str) -> None:
 def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
               report: bool = True, device="cuda"):
     """The `stats` command on ``device`` ("cuda" or "cpu").  Returns the
-    merged :class:`~hpgq.core.counters.StatsCounters`, a
+    merged :class:`~hpgq_torch.core.counters.StatsCounters`, a
     ``(counters1, counters2)`` pair for paired input."""
-    from hpgq.utils.checkpoint import (
-        load_counters_checkpoint,
-        save_counters_checkpoint,
-    )
-
     dev = resolve_device(device)
     _check_ported(opts, "stats")
     timers = timers or StageTimers()
@@ -451,11 +453,6 @@ def _run_stats_paired(opts, timers, crit, br, dev, report: bool):
     """The serial paired branch of `stats` (``hpgq/pipeline/run.py:
     532-602``): both mates' steps per batch, the checkpoint key of
     ``hpgq``, and the pair tallies copied into both counters."""
-    from hpgq.utils.checkpoint import (
-        load_counters_checkpoint,
-        save_counters_checkpoint,
-    )
-
     sess = PairedStatsSession(opts.quality_encoding_value, crit,
                               batch_reads=br, device=dev,
                               kmers_on=opts.kmers_on)
@@ -740,8 +737,6 @@ class _OutputCheckpointer:
         """(input_start_offset, {name: output_append_at or None}[, aux])."""
         if not self.path:
             return (0, {}, {}) if aux_keys else (0, {})
-        from hpgq.utils.checkpoint import load_counters_checkpoint
-
         loaded = load_counters_checkpoint(self.path, self.key)
         if not loaded:
             return (0, {}, {k: 0 for k in aux_keys}) if aux_keys else (0, {})
@@ -761,8 +756,6 @@ class _OutputCheckpointer:
         self.nb += 1
         if self.nb % self.every:
             return
-        from hpgq.utils.checkpoint import save_counters_checkpoint
-
         if pre_save is not None:
             pre_save()  # in-flight async writes land before the sizes
         with timers.stage("checkpoint"):

@@ -8,7 +8,7 @@ host counters carry over, since merging is associative), which also moves
 the batches from K1 to K2 once the bucket passes 4096.
 
 Rows: short-read blocks (L <= 4096, K1) are padded to
-``hpgq.io.packer.bucket_rows``' 16,384-row buckets as in ``hpgq``.  A
+``bucket_rows``' 16,384-row buckets as in ``hpgq``.  A
 long-read block (K2) is padded only to a multiple of
 :data:`LONG_ROW_MULTIPLE`: those buckets exist to bound XLA's compiled
 shapes, eager PyTorch has no shape cache, and a 16 MB block of 10 kb reads
@@ -24,8 +24,17 @@ import threading
 
 import torch
 
-from hpgq.core.counters import StatsCounters
-from hpgq.io.packer import bucket_rows, pack_block, round_up, wire_len
+from ..core.counters import StatsCounters
+from ..io.packer import (
+    bucket_rows,
+    pack_block,
+    pack_block_wire,
+    round_up,
+    try_pack_block_2c,
+    try_pack_block_2u,
+    try_pack_block_palette,
+    wire_len,
+)
 
 from ..core.accumulator import (
     DeviceAccumulator,
@@ -65,8 +74,6 @@ def pack_payload(block, L: int, rows: int, wire):
     adaptive bitpack buffer (a ``(buf, exc)`` pair for 2c) trimmed to the
     block's own length; else ``(codes, quals, lens, valid)`` ``L`` wide."""
     if wire == "bitpack":
-        from hpgq.io.packer import pack_block_wire, try_pack_block_2u
-
         u = try_pack_block_2u(block, pad_reads_to=rows)
         if u is not None:
             return ("2u",) + u
@@ -276,12 +283,6 @@ class ShapeCachedFn:
         """(tier, host payload) for one block."""
         if self.wire is None:
             return "plain", pack_block(block, max_len=lmax, pad_reads_to=rows)
-        from hpgq.io.packer import (
-            pack_block_wire,
-            try_pack_block_2c,
-            try_pack_block_palette,
-        )
-
         wl = wire_len(block.max_len(), lmax)
         if not self._qn:
             buf = pack_block_wire(block, "bitpack", wl, pad_reads_to=rows,

@@ -248,11 +248,9 @@ def test_long_read_blocks_pad_to_64_rows(tmp_path):
 def test_palette_miss_is_sticky(tmp_path, monkeypatch):
     """On unbinned reads the 2c and 2q attempts stop after three misses in
     a row; every block then goes over qn8 at once."""
-    import hpgq.io.packer as packer
-
     tries = []
-    real = packer.try_pack_block_2c
-    monkeypatch.setattr(packer, "try_pack_block_2c",
+    real = session.try_pack_block_2c
+    monkeypatch.setattr(session, "try_pack_block_2c",
                         lambda *a, **k: tries.append(1) or real(*a, **k))
     monkeypatch.setenv("HPGQ_WIRE", "bitpack")
     path = _corpus(tmp_path, "unbinned")

@@ -490,6 +490,54 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         stats_cuda.batch_partials_cuda(*t, 4224, PHRED33)
 
 
+def test_2u_wrapper_refuses_what_it_does_not_take():
+    """K1's 2u entry takes only CUDA tensors (no CPU fallback inside the
+    wrapper) and only a 2u batch that fits it; ``batch_partials_2u``
+    sends CPU tensors to the decode and the plain twin instead."""
+    buf = torch.zeros((16, 52), dtype=torch.uint8)
+    exc = torch.full((8,), (16 * 104) << 1, dtype=torch.int32)
+    pal = torch.tensor([35, 45, 56, 70], dtype=torch.uint8)
+    with pytest.raises(ValueError, match="K1 2u wrapper needs CUDA"):
+        stats_cuda.batch_partials_cuda_2u(buf, exc, pal, 16, 100, 128,
+                                          PHRED33)
+    with pytest.raises(ValueError, match="L <= lcap <= 4096"):
+        stats_cuda.batch_partials_cuda_2u(buf, exc, pal, 16, 100, 8192,
+                                          PHRED33)
+    before = stats_cuda.LAUNCHES_2U
+    p = stats_cuda.batch_partials_2u(buf, exc, pal, 10, 100, 128, PHRED33)
+    assert stats_cuda.LAUNCHES_2U == before
+    assert int(p["num_reads"]) == 10 and int(p["acc_length"]) == 1000
+    assert p["_passed_mask"].tolist() == [True] * 10 + [False] * 6
+
+
+@pytest.mark.parametrize("B,lcap,n_f32,extra", [(0, 128, 1, 0),
+                                                (300, 4608, 300, 2410)])
+def test_kernel_outputs_share_one_zeroed_buffer(B, lcap, n_f32, extra):
+    """The wrappers cut every output from one zeroed allocation: the int64
+    fields in the partials' shapes, then the f32 slots, then the pass
+    mask, none overlapping."""
+    out = stats_cuda._Outputs(torch.device("cpu"), lcap, B, n_f32, extra)
+    shapes = [t.shape for t in (out.scal, out.lh, out.qh, out.gh, out.cov,
+                                out.qpn, out.bpn, out.bt, out.scratch)]
+    assert shapes == [(8,), (lcap + 1,), (256,), (101,), (lcap,), (lcap,),
+                      (5, lcap), (5,), (extra,)]
+    assert out.f32.dtype == torch.float32 and out.f32.shape == (n_f32,)
+    assert out.passed.dtype == torch.bool and out.passed.shape == (B,)
+    views = [out.scal, out.lh, out.qh, out.gh, out.cov, out.qpn, out.bpn,
+             out.bt, out.scratch, out.f32, out.passed]
+    spans = sorted((v.data_ptr(), v.data_ptr() + v.numel() * v.element_size())
+                   for v in views if v.numel())
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] - spans[0][0] == (
+        8 * (8 + (lcap + 1) + 256 + 101 + 7 * lcap + 5 + extra)
+        + 4 * n_f32 + B)
+    for v in views:
+        v.fill_(1)  # each view writes only its own bytes
+    assert int(out.scal.sum()) == 8 and int(out.passed.sum()) == B
+    p = out.partials(out.f32[0] if n_f32 else None, out.bt, None)
+    assert p["_passed_mask"] is out.passed and "_num_passed" not in p
+
+
 # ------------------------------------------------------------ paired steps
 
 PAIR_CRITS = {"none": None, "bench": CRITS["bench"],

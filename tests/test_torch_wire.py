@@ -1,8 +1,8 @@
 """The port's wire decoders and per-batch steps against the JAX engine.
 
-Buffers come from the shared native packers (``hpgq.io.packer``); each
-torch decoder must give the same bytes as its jnp counterpart and as
-``pack_block``.  The port's steps (decode -> pad -> partials -> merge) are
+Buffers come from ``hpgq``'s native packers (``hpgq.io.packer``, byte-equal
+to the port's copy: ``tests/test_torch_isolation.py``); each torch decoder
+must give the same bytes as its jnp counterpart and as ``pack_block``.  The port's steps (decode -> pad -> partials -> merge) are
 held against ``stats_jnp.make_stats_step2u`` / ``make_stats_step`` with the
 Pallas kernel in interpret mode, over several batches: integer fields
 exact, ``acc_quality`` to 1e-3 relative (f32 sums in another order).
@@ -176,6 +176,87 @@ def test_step2u_matches_jax(tmp_path, crit):
         acc_t = step_t(acc_t, _t(buf), _t(exc), _t(pal), n_valid)
     assert tstep.WIRE_BATCHES["2u"] == len(blocks) == 3
     _compare_acc(acc_t, acc_j)
+
+
+@pytest.mark.parametrize("kmers", [False, True], ids=["no-kmers", "kmers"])
+@pytest.mark.parametrize("crit", [None, CRIT], ids=["plain", "filtered"])
+def test_step2u_routes_by_need(tmp_path, crit, kmers):
+    """Without k-mers a 2u batch goes to ``batch_partials_2u`` (K1's 2u
+    entry on CUDA; on the CPU its plain version decodes there, outside
+    ``unwire``); with k-mers it is decoded by ``unwire`` first, since the
+    k-mer pass reads codes.  Either way the step equals JAX's
+    ``make_stats_step2u``."""
+    blocks = _blocks(tmp_path, n=800, batch=400, min_len=100, max_len=100,
+                     seed=15, qual_bins=(2, 12, 23, 37))
+    step_j = stats_jnp.make_stats_step2u(128, 33, kmers, crit, 100,
+                                         engine="pallas_interpret")
+    step_t = tstep.make_stats_step2u(128, 33, crit, 100, kmers_on=kmers)
+    acc_j = stats_jnp.zero_partials(128, kmers_on=kmers)
+    acc_t = zero_partials(128, kmers_on=kmers)
+    tstep.WIRE_BATCHES.clear()
+    tstep.DECODED.clear()
+    for block in blocks:
+        buf, exc, pal, n_valid, Lu = try_pack_block_2u(block,
+                                                       pad_reads_to=512)
+        acc_j = step_j(acc_j, buf, exc, pal, n_valid)
+        acc_t = step_t(acc_t, _t(buf), _t(exc), _t(pal), n_valid)
+    assert tstep.WIRE_BATCHES["2u"] == len(blocks) == 2
+    assert tstep.DECODED[("cpu", "2u")] == (len(blocks) if kmers else 0)
+    _compare_acc(acc_t, acc_j)
+    if kmers:
+        for k in ("kmer_counts", "kmer_per_nt"):
+            np.testing.assert_array_equal(acc_t[k].numpy(),
+                                          np.asarray(acc_j[k]), err_msg=k)
+
+
+def test_step2u_past_k1_lcap_decodes(tmp_path):
+    """A session grown past K1's 4096 columns (an earlier long-read block)
+    still takes 2u batches: they are decoded for K2, which takes tensors,
+    and give the same sums as the step at lcap 128."""
+    blocks = _blocks(tmp_path, n=600, batch=300, min_len=100, max_len=100,
+                     seed=17, qual_bins=(2, 12, 23, 37))
+    acc = {128: zero_partials(128), 4224: zero_partials(4224)}
+    tstep.DECODED.clear()
+    for block in blocks:
+        buf, exc, pal, n_valid, _ = try_pack_block_2u(block, pad_reads_to=512)
+        for lcap in acc:
+            acc[lcap] = tstep.make_stats_step2u(lcap, 33, CRIT, 100)(
+                acc[lcap], _t(buf), _t(exc), _t(pal), n_valid)
+    assert tstep.DECODED[("cpu", "2u")] == len(blocks) == 2  # lcap 4224 only
+    short, wide = acc[128], acc[4224]
+    for k in INT_KEYS:
+        w = wide[k].numpy()
+        if k in ("cov_per_nt", "qual_per_nt", "base_per_nt", "length_hist"):
+            assert not w[..., 129:].any(), k
+            w = w[..., :short[k].shape[-1]]
+        np.testing.assert_array_equal(w, short[k].numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_2u_exceptions_ascend(tmp_path, native):
+    """K1's 2u entry binary-searches each tile's exceptions, so the
+    sidecar must come in ascending flat-index order: both packers (the
+    native one's per-thread slices, compacted in thread order, and the
+    numpy one's row-major nonzero) write it so, sentinels last."""
+    from hpgq_torch.io import packer as tpacker
+    from hpgq_torch.io.fastq import FastqReader as TReader
+
+    path = tmp_path / "exc.fq"
+    make_fastq(str(path), 3000, min_len=100, max_len=100, n_prob=0.03,
+               seed=16, qual_bins=(2, 12, 23, 37))
+    with TReader(str(path), batch_size=1500) as rd:
+        for block in rd:
+            if native:
+                buf, exc, pal, n_valid, Lu = tpacker.try_pack_block_2u(
+                    block, pad_reads_to=2048)
+            else:
+                buf, exc, pal, n_valid = tpacker.wire_bitpack2u_np(
+                    *tpacker.pack_block(block, max_len=104,
+                                        pad_reads_to=2048))
+            assert n_valid == 1500
+            real = exc[exc < (2048 * 104) << 1]
+            assert len(real) > 1000  # N positions at 3%
+            assert np.all(np.diff(exc.astype(np.int64)) >= 0)
 
 
 @pytest.mark.parametrize("tier", list(TIERS), ids=list(TIERS))
