@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # phases 1-5 and 7-10 (one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5 and 7-12 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
@@ -60,15 +60,36 @@ Phases, each printing its own lines:
     byte-equal to the records ``oracle.reference_verdicts`` selects, every
     verdict batch on the card; then reads/s (pairs/s) of three warm passes.
 
-Phases 9 and 10 reuse the corpora of phases 4 and 8, and write them when
+11. Edit and prepro: ``hpgq_torch.edit`` over phase 4's corpus with
+    ``bench.py``'s ``EDIT_CRIT`` (trim only) and with the golden settings
+    (two windows and a post-filter), paired over phase 9's pairs,
+    ``prepro`` (5 and 3 bases at quality 27-64), and over phase 8's long
+    reads with a 50-base right window and the NanoFilt-style post-filter:
+    every output file byte-equal to ``oracle.trimmed_fastq_bytes`` of
+    ``oracle.reference_trims`` (and the post-filter's selection), the
+    counts equal, every batch on the card.  Then ``stats`` over the
+    trim-only and the long-read ``edit.fq`` (the ``bench.py:530-551``
+    chain), held against ``reference_stats`` over the kept trimmed reads:
+    the first must launch K1, the second K2.  Reads/s of three warm passes
+    of the chain, of paired edit and of long-read edit.
+12. CGR: ``hpgq_torch.cgr`` at k=7 with ``write_gs`` over phase 4's
+    corpus and over phase 9's pairs (one signature): the tables, the word
+    count and the PGM and ``.gs`` bytes equal to ``oracle.reference_cgr``
+    and what ``report.pgm`` writes from it; a second run against its own
+    ``.gs`` gives a zero diff.  ``cgr_batch_tables`` on the card at k=10
+    and on the poly-A batch whose quality cell passes 2^31, exact.  Reads/s
+    of three warm passes, and the device ms per batch of one profiled pass.
+
+Phases 9-12 reuse the corpora of phases 4 and 8, and write them when
 those phases are not selected.  On an NVIDIA H100 80GB HBM3 (700 W) the
-default run takes about 255 s of command time, the build included, of
-which phases 9 and 10 take about 100 s (half of it writing the mate-2
-corpus and computing the references); ``--phases 9,10`` alone takes about
-135 s, since it writes all three corpora itself.  The kernels line gives
-K1's plain and 2u entries and K2 with their launches on the paths that
-drive them (phase 4 and 9's unfiltered run for the 2u entry, phases 5 and
-9's filtered run for the plain entry, phase 8 for K2).
+default run takes about 390 s of command time, the build included;
+``--phases 9,10`` alone takes about 135 s and ``--phases 11,12`` about
+235 s, since each writes all three corpora itself (about 50 s).  The
+kernels line gives K1's plain and 2u entries and K2 with their launches
+on the paths that drive them (phase 4 and 9's unfiltered run for the 2u
+entry; phases 5, 9's filtered run and 11's stats over the trimmed short
+reads for the plain entry; phase 8 and 11's stats over the trimmed long
+reads for K2).
 
 Imports nothing of jax and nothing of the JAX package ``hpgq``: the run
 blocks ``import jax`` and ``import hpgq``, so a path that needed either
@@ -836,7 +857,9 @@ def paired_runs(m1, recs1, m2, recs2, outdir, device):
 
 def warm_passes(fn, n, unit, smi, label, phase):
     """Three warm passes of ``fn``, printed as ``unit``/s, best and
-    median, then one profiled pass: the card's busy share."""
+    median, then one profiled pass: the card's busy share.  Returns that
+    pass's ``breakdown._device_ms`` (None where the profiler saw no
+    device)."""
     import torch
 
     from hpgq_torch.breakdown import _device_ms, _fmt_busy
@@ -852,8 +875,9 @@ def warm_passes(fn, n, unit, smi, label, phase):
                                                        for t in times),
                               n / min(times), unit, n / sorted(times)[1],
                               unit, smi))
-    say(phase, "%s, one profiled pass: device %s"
-        % (label, _fmt_busy(_device_ms(fn, torch.device("cuda", 0)))))
+    busy = _device_ms(fn, torch.device("cuda", 0))
+    say(phase, "%s, one profiled pass: device %s" % (label, _fmt_busy(busy)))
+    return busy
 
 
 def phase_paired(tmp, smi):
@@ -970,13 +994,323 @@ def phase_filter(tmp, smi, se_passed=None):
                     else "reads", smi, label, "filter")
 
 
+# ---------------------------------------------------------------- phase 11
+
+EDIT_TRIM = dict(left_length=10, left_quality_range=(28, 60))  # bench.py:381
+EDIT_GOLDEN = dict(  # tests/test_golden.py:100-111
+    left_length=8, left_quality_range=(28, 60), right_length=6,
+    right_quality_range=(28, 60), filter_after=True,
+    read_quality_range=(20, 45))
+PREPRO = dict(ltrim_nts=5, rtrim_nts=3, min_quality=27, max_quality=64)
+# a 50-base right window: qualities 2-41 put its mean near 21.5, so a
+# window of 20-60 trims about a fifth of the reads (10-60 would trim none)
+LONG_EDIT = dict(LONG_FILTER, right_length=50, right_quality_range=(20, 60),
+                 filter_after=True)
+
+
+def _window_kw(kw, side):
+    if side + "_length" not in kw:
+        return None
+    return kw[side + "_length"], kw.get(side + "_quality_range")
+
+
+def edit_expect(kind, paths, recs, kw):
+    """What ``hpgq_torch.<kind>(*paths, **kw)`` must write and count, from
+    ``hpgq_torch.oracle``: ``({file name: bytes}, {count: value}, [(lt,
+    rt) per mate], the records kept)``.  A pair is kept when both trimmed
+    mates pass the post-filter."""
+    from hpgq_torch.oracle import (
+        reference_trims,
+        reference_verdicts,
+        trimmed_fastq_bytes,
+        trimmed_records,
+    )
+
+    single = len(paths) == 1
+    if kind == "prepro":
+        q = (max(kw["min_quality"], 10), min(kw["max_quality"], 70))
+        left = (kw["ltrim_nts"], q) if kw.get("ltrim_nts", 0) > 0 else None
+        right = (kw["rtrim_nts"], q) if kw.get("rtrim_nts", 0) > 0 else None
+        post = None
+        names = [os.path.basename(p) + ".valid" for p in paths]
+    else:
+        left, right = _window_kw(kw, "left"), _window_kw(kw, "right")
+        post = {k: kw[k] for k in ("read_length_range", "read_quality_range",
+                                   "max_N") if k in kw} \
+            if kw.get("filter_after") else None
+        names = ["edit.fq"] if single else ["edit_1.fq", "edit_2.fq"]
+    trims = []
+    for r in recs:  # each list's trims computed once per run
+        key = (id(r), left, right)
+        if key not in _TRIMS:
+            _TRIMS[key] = reference_trims(r, left=left, right=right)
+        trims.append(_TRIMS[key])
+    sel = np.ones(len(recs[0]), bool)
+    for r, (lt, rt) in zip(recs, trims):
+        if post is not None:
+            sel &= reference_verdicts(trimmed_records(r, lt, rt), **post)
+    files = {n: trimmed_fastq_bytes(r, lt, rt, sel)
+             for n, r, (lt, rt) in zip(names, recs, trims)}
+    if post is not None:
+        failed = ["failed.fq"] if single else ["failed_1.fq", "failed_2.fq"]
+        files.update({n: trimmed_fastq_bytes(r, lt, rt, ~sel)
+                      for n, r, (lt, rt) in zip(failed, recs, trims)})
+    counts = {"num_edited": sum(int(((lt > 0) | (rt > 0)).sum())
+                                for lt, rt in trims),
+              "num_passed": int(sel.sum()) if post is not None else 0,
+              "num_failed": int((~sel).sum()) if post is not None else 0}
+    return files, counts, trims, sel
+
+
+_TRIMS = {}
+
+
+def edit_runs(cases, outdir, device):
+    """``hpgq_torch.edit`` or ``prepro`` on ``device`` for each case
+    ``(label, kind, paths, record lists, keywords)``: the output directory
+    must hold exactly the files :func:`edit_expect` builds, byte for byte,
+    and the counts must be its counts.  Returns ``{label: (result, verdict
+    batches by (device, tier), seconds, reference trims, records kept)}``."""
+    import hpgq_torch
+    from hpgq_torch.pipeline import session
+
+    out = {}
+    for label, kind, paths, recs, kw in cases:
+        session.FN_BATCHES.clear()
+        od = tempfile.mkdtemp(dir=outdir)
+        t0 = time.perf_counter()
+        res = getattr(hpgq_torch, kind)(*paths, outdir=od, device=device,
+                                        **kw)
+        secs = time.perf_counter() - t0
+        files, counts, trims, sel = edit_expect(kind, paths, recs, kw)
+        check(sorted(os.listdir(od)) == sorted(files),
+              "%s: wrote %s, the reference %s" % (label, sorted(os.listdir(od)),
+                                                   sorted(files)))
+        for name, want in files.items():
+            with open(os.path.join(od, name), "rb") as f:
+                check(f.read() == want, "%s: %s differs from the reference"
+                      % (label, name))
+        got = {k: res[k] for k in counts}
+        check(got == counts, "%s: counts %s, the reference %s"
+              % (label, got, counts))
+        out[label] = (res, dict(session.FN_BATCHES), secs, trims, sel)
+    return out
+
+
+def edit_then_stats(res, records, trims, sel, outdir, device):
+    """``hpgq_torch.stats`` over an edit run's ``edit.fq`` (the
+    ``bench.py:530-551`` chain): counters equal to ``reference_stats`` over
+    the trimmed records it kept (``sel``).  Returns (counters, launches)."""
+    import hpgq_torch
+    from hpgq_torch.oracle import (
+        assert_counters_equal,
+        reference_stats,
+        trimmed_records,
+    )
+
+    reset_counts()
+    got = hpgq_torch.stats(res["edit_filename"], outdir=outdir, device=device)
+    kept = [r for r, s in zip(trimmed_records(records, *trims), sel) if s]
+    assert_counters_equal(got, reference_stats(kept), "stats over edit.fq")
+    return got, launch_counts()
+
+
+def phase_edit(tmp, smi):
+    """Edit and prepro on the card; returns the launches of K1's plain
+    entry and of K2 by the stats passes over ``edit.fq``."""
+    import hpgq_torch
+
+    m1, recs1 = bench_corpus(tmp)
+    m2, recs2 = bench_corpus(tmp, seed=8)
+    lpath, lrecs = long_corpus(tmp)
+    cases = [("trim only", "edit", (m1,), (recs1,), EDIT_TRIM),
+             ("golden settings", "edit", (m1,), (recs1,), EDIT_GOLDEN),
+             ("paired, golden settings", "edit", (m1, m2), (recs1, recs2),
+              EDIT_GOLDEN),
+             ("prepro", "prepro", (m1,), (recs1,), PREPRO),
+             ("long reads", "edit", (lpath,), (lrecs,), LONG_EDIT)]
+    t0 = time.perf_counter()
+    runs = edit_runs(cases, tmp, "cuda")
+    for label, (res, batches, secs, _, _) in runs.items():
+        check(batches and all(dev == "cuda" for dev, _ in batches),
+              "%s: an edit batch ran off the card (%s)" % (label, batches))
+        say("edit", "%s: cold pass %.3f s, batches %s; every output == "
+            "reference (%d edited, %d passed, %d failed)"
+            % (label, secs, batches, res["num_edited"], res["num_passed"],
+               res["num_failed"]))
+    say("edit", "five runs and their references took %.1f s"
+        % (time.perf_counter() - t0))
+    n = {}
+    for label, recs, kernel in (("trim only", recs1, "K1"),
+                                ("long reads", lrecs, "K2")):
+        res, _, _, trims, sel = runs[label]
+        got, launches = edit_then_stats(res, recs, trims[0], sel,
+                                        tempfile.mkdtemp(dir=tmp), "cuda")
+        check(launches[kernel] + (launches["K1 2u"] if kernel == "K1" else 0)
+              > 0, "stats over the %s edit.fq launched %s no time (%s)"
+              % (label, kernel, launches))
+        n[kernel] = launches[kernel]
+        say("edit", "stats over the %s edit.fq: launches %s; == reference "
+            "(%d reads, lengths %d-%d)" % (label, launches, got.num_reads,
+                                           got.min_length, got.max_length))
+
+    def chain():
+        od = tempfile.mkdtemp(dir=tmp)
+        res = hpgq_torch.edit(m1, outdir=od, device="cuda", **EDIT_TRIM)
+        hpgq_torch.stats(res["edit_filename"], outdir=od, device="cuda")
+
+    warm_passes(chain, len(recs1), "reads", smi, "edit -> stats chain "
+                "(bench config #3)", "edit")
+    for label, paths, recs, kw in (
+            ("paired edit, golden settings", (m1, m2), recs1, EDIT_GOLDEN),
+            ("long-read edit", (lpath,), lrecs, LONG_EDIT)):
+        warm_passes(lambda paths=paths, kw=kw: hpgq_torch.edit(
+            *paths, outdir=tempfile.mkdtemp(dir=tmp), device="cuda", **kw),
+            len(recs), "pairs" if len(paths) == 2 else "reads", smi, label,
+            "edit")
+    return n["K1"], n["K2"]
+
+
+# ---------------------------------------------------------------- phase 12
+
+def cgr_reference(recs, k):
+    """``reference_cgr`` summed over the record lists of every mate (one
+    signature), each list computed once per run."""
+    from hpgq_torch.oracle import reference_cgr
+
+    refs = [_CGR_REFS.get((id(r), k)) for r in recs]
+    for i, r in enumerate(recs):
+        if refs[i] is None:
+            refs[i] = _CGR_REFS[(id(r), k)] = reference_cgr(r, k)
+    return tuple(sum(x) for x in zip(*refs))
+
+
+_CGR_REFS = {}
+
+
+def cgr_check(res, recs, k, outdir, label):
+    """A ``hpgq_torch.cgr`` result against :func:`cgr_reference` over the
+    records of every mate: the tables, the word count, and the PGM and
+    ``.gs`` bytes that ``hpgq_torch.report.pgm`` writes from the
+    reference's tables."""
+    from hpgq_torch.constants import CGR_MAX_QUALITY_IN_TABLE
+    from hpgq_torch.report import pgm
+
+    ts, tq, words = cgr_reference(recs, k)
+    check(np.array_equal(res["table_seq"], ts)
+          and np.array_equal(res["table_q"], tq)
+          and res["fq_word_count"] == words,
+          "%s: tables or word count differ from the reference" % label)
+    want = {"_FG.pgm": pgm.pgm_bytes(ts, k, pgm.fq_norm_value(words, k)),
+            "_QQ.pgm": pgm.pgm_bytes(pgm.normalize_quality_table(tq, ts, k),
+                                     k, 256.0 / CGR_MAX_QUALITY_IN_TABLE)}
+    if "gs_file" in res:
+        ref = os.path.join(tempfile.mkdtemp(dir=outdir),
+                           os.path.basename(res["gs_file"]))
+        with open(pgm.write_gs(ref, ts, k, words), "rb") as f:
+            want[".gs"] = f.read()
+    base = res["pgm_files"][0][:-len("_FG.pgm")]
+    for suffix, data in want.items():
+        with open(base + suffix, "rb") as f:
+            check(f.read() == data, "%s: %s differs from the reference"
+                  % (label, suffix))
+    return words
+
+
+def cgr_self_diff(path, gs, k, outdir, device):
+    """``cgr`` against the file's own signature: an all-zero diff image,
+    mean and stddev 0."""
+    import hpgq_torch
+
+    res = hpgq_torch.cgr(path, outdir=outdir, k=k, gs_filename=gs,
+                         device=device)
+    with open(res["pgm_files"][-1], "rb") as f:
+        body = f.read().split(b"\n", 3)[3]
+    check(res["pgm_files"][-1].endswith("_FG_dif.pgm") and set(body) == {0}
+          and res["mean_dif"] == 0.0 and res["std_dif"] == 0.0,
+          "the self-diff is not zero (mean %r, stddev %r)"
+          % (res["mean_dif"], res["std_dif"]))
+
+
+def cgr_direct_checks(device, n_overflow=3000):
+    """``cgr_batch_tables`` on ``device`` against ``reference_cgr``: k=10
+    on a small batch, and the int32-overflow case of
+    ``tests/test_cgr.py:241-261`` (``n_overflow`` poly-A reads of 4096 at
+    quality 126, k=2), whose one cell passes 2^31 with 3000 reads."""
+    import torch
+
+    from gen import make_records
+    from hpgq_torch.kernels.cgr_torch import cgr_batch_tables
+    from hpgq_torch.oracle import _padded, reference_cgr
+
+    cases = [("k=10, 96 reads of 20-300 bp", 10, make_records(
+        96, min_len=20, max_len=300, n_prob=0.02, lowercase_prob=0.05,
+        seed=12)),
+        ("k=2, %d poly-A reads of 4096 at quality 126" % n_overflow, 2,
+         [(b"@a", b"A" * 4096, b"~" * 4096)] * n_overflow)]
+    out = {}
+    for label, k, recs in cases:
+        codes, quals, lens, _ = _padded(recs, 33)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+             for a in (codes, quals.astype(np.uint8), lens,
+                       np.ones(len(recs), bool))]
+        ts, tq, w = (x.cpu().numpy() for x in cgr_batch_tables(*t, k, 33))
+        rts, rtq, rw = reference_cgr(recs, k)
+        check(np.array_equal(ts, rts) and np.array_equal(tq, rtq)
+              and int(w) == rw, "%s: cgr_batch_tables differs from the "
+              "reference" % label)
+        out[label] = int(np.abs(tq).max())
+    return out
+
+
+def phase_cgr(tmp, smi):
+    import hpgq_torch
+    from hpgq_torch.pipeline import cgr_run
+
+    m1, recs1 = bench_corpus(tmp)
+    m2, recs2 = bench_corpus(tmp, seed=8)
+    gs = {}
+    for label, paths, recs in (("single-end", (m1,), (recs1,)),
+                               ("paired", (m1, m2), (recs1, recs2))):
+        cgr_run.BATCHES.clear()
+        t0 = time.perf_counter()
+        res = hpgq_torch.cgr(*paths, outdir=tempfile.mkdtemp(dir=tmp), k=7,
+                             write_gs=True, device="cuda")
+        gs[label] = res["gs_file"]
+        secs = time.perf_counter() - t0
+        batches = dict(cgr_run.BATCHES)
+        check(batches and all(dev == "cuda" for dev, _ in batches),
+              "%s: a CGR batch ran off the card (%s)" % (label, batches))
+        if label == "single-end":
+            nbatches = sum(batches.values())
+        words = cgr_check(res, recs, 7, tmp, "cgr " + label)
+        say("cgr", "%s k=7: cold pass %.3f s, batches %s; tables, word "
+            "count (%d), PGMs and .gs == reference"
+            % (label, secs, batches, words))
+    cgr_self_diff(m1, gs["single-end"], 7, tempfile.mkdtemp(dir=tmp), "cuda")
+    say("cgr", "diff against its own .gs: all-zero _FG_dif.pgm, mean and "
+        "stddev 0")
+    for label, cell in cgr_direct_checks("cuda").items():
+        say("cgr", "cgr_batch_tables %s on the card == reference (largest "
+            "quality cell %d)" % (label, cell))
+
+    def one():
+        hpgq_torch.cgr(m1, outdir=tempfile.mkdtemp(dir=tmp), k=7,
+                       device="cuda")
+
+    busy = warm_passes(one, len(recs1), "reads", smi, "cgr k=7", "cgr")
+    if busy is not None:
+        say("cgr", "device time per batch of the profiled pass (kernels and "
+            "copies, %d batches): %.3f ms" % (nbatches, busy[0] / nbatches))
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12",
                     help="comma-separated phases to run (default 1-5 and "
-                         "7-10; 6, the stage breakdown, runs only when "
+                         "7-12; 6, the stage breakdown, runs only when "
                          "asked for; the card and the build always run)")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
@@ -1030,8 +1364,9 @@ def main(argv=None):
     try:
         # launches come from the paths that drive each kernel: the main
         # path (phase 4) and paired stats with no filter (9) for the 2u
-        # entry; the other wire tiers (5) and the paired filter (9) for the
-        # plain entry; long reads (8) for K2
+        # entry; the other wire tiers (5), the paired filter (9) and stats
+        # over the trimmed short reads (11) for the plain entry; long
+        # reads (8) and stats over the trimmed long reads (11) for K2
         if 3 in phases:
             res = phase_kernel(dev)
             k1.update(res["K1"])
@@ -1051,6 +1386,12 @@ def main(argv=None):
             k1u["launches"] += n_2u
         if 10 in phases:
             phase_filter(tmp, smi, se_passed)
+        if 11 in phases:
+            n_plain, n_k2 = phase_edit(tmp, smi)
+            k1["launches"] += n_plain
+            k2["launches"] += n_k2
+        if 12 in phases:
+            phase_cgr(tmp, smi)
         if 6 in phases:
             phase_breakdown(tmp, smi)
     finally:

@@ -1,11 +1,12 @@
-"""hpgq_torch command-line interface: ``python -m hpgq_torch stats|filter``.
+"""hpgq_torch command-line interface:
+``python -m hpgq_torch stats|filter|edit|prepro|cgr``.
 
-The `stats` and `filter` commands take ``hpgq``'s flags (the parser
-helpers below are copies of ``hpgq/cli/main.py``'s, so the PARAMETERS and
-RESULTS blocks, the report files and the FASTQ outputs come out
+Every command takes ``hpgq``'s flags (the parser helpers below are copies
+of ``hpgq/cli/main.py``'s, so the PARAMETERS and RESULTS blocks, the
+report files, the FASTQ outputs and the PGM and ``.gs`` files come out
 byte-for-byte as ``hpgq`` writes them) plus ``--device`` (default
-``cuda``).  The other
-commands, and the legacy single-binary flags, are not ported yet and exit
+``cuda``).  The legacy single-binary flags (``--qc``, ``--filter``,
+``--prep``, ``--cg`` and their spellings) are not ported yet and exit
 non-zero.
 """
 
@@ -17,15 +18,20 @@ import sys
 
 from .. import __version__
 from ..options import (
+    CgrOptions,
+    EditOptions,
     FilterOptions,
     OptionsError,
+    PreproOptions,
     StatsOptions,
     display,
     validate_common,
 )
 from ..utils.timers import StageTimers
 
-_NOT_PORTED = ("edit", "prepro", "cgr")
+# legacy single-binary action flags (hpgq/cli/main.py:409-412), not ported
+_LEGACY_ACTIONS = ("--qc", "--quality-control", "--filter", "--prep",
+                   "--preprocessing", "--cg", "--chaos-game")
 
 # The parser helpers from here to _results_banner are copies of
 # hpgq/cli/main.py:40-42 and :63-391.
@@ -373,12 +379,15 @@ def usage(exec_name: str) -> str:
         "\n"
         "Usage: %s <command> [options]\n"
         "\n"
-        "Command: stats\t\tstatistics summary (--device cuda|cpu)\n"
-        "         filter\tfilter reads by length, quality and N count "
-        "(--device cuda|cpu)\n"
+        "Command: stats\t\tstatistics summary\n"
+        "         filter\tfilter reads by length, quality and N count\n"
+        "         edit\t\ttrim read ends by window quality\n"
+        "         prepro\tlegacy preprocessing (trims, <input>.valid)\n"
+        "         cgr\t\tchaos-game genomic signature\n"
         "\n"
-        "Not ported yet (use hpgq): %s\n"
-        % (exec_name, __version__, exec_name, ", ".join(_NOT_PORTED))
+        "Every command takes --device cuda (default) or --device cpu.\n"
+        "Not ported yet (use hpgq): the legacy single-binary flags %s\n"
+        % (exec_name, __version__, exec_name, ", ".join(_LEGACY_ACTIONS))
     )
 
 
@@ -400,12 +409,71 @@ def _main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print(usage(exec_name), end="")
         return -1
-    commands = {"stats": _stats, "filter": _filter}
+    if argv[0].startswith("-") and any(a in _LEGACY_ACTIONS for a in argv):
+        print("%s: the legacy single-binary flags (%s) are not ported yet "
+              "(ROADMAP.md queue 1 item 17); use the subcommands or hpgq"
+              % (exec_name, ", ".join(a for a in argv
+                                      if a in _LEGACY_ACTIONS)),
+              file=sys.stderr)
+        return -1
+    commands = {"stats": _stats, "filter": _filter, "edit": _edit,
+                "prepro": _prepro, "cgr": _cgr}
     if argv[0] not in commands:
-        print("%s: command %r is not ported yet (ROADMAP.md queue 1); "
-              "use hpgq" % (exec_name, argv[0]), file=sys.stderr)
+        print(usage(exec_name), end="")
         return -1
     return commands[argv[0]](argv[1:], exec_name)
+
+
+def _add_command_args(parser, command: str) -> None:
+    """The flags of one command beyond the common ones
+    (``hpgq/cli/main.py:596-781``)."""
+    if command == "stats":
+        parser.add_argument("--kmers", dest="kmers_on", action="store_true",
+                            help="Enable k-mers analysis (5-mer)")
+    if command in ("stats", "filter", "edit"):
+        _add_legacy_filter_aliases(parser)
+    if command == "prepro":
+        parser.add_argument("--ltrim-nts", type=int, default=0,
+                            help="Number of left (first) nucleotides to screen")
+        parser.add_argument("--rtrim-nts", type=int, default=0,
+                            help="Number of right (last) nucleotides to screen")
+        parser.add_argument("--min-quality", type=int, default=20,
+                            help="Minimum accepted window quality (clamped to >=10)")
+        parser.add_argument("--max-quality", type=int, default=60,
+                            help="Maximum accepted window quality (clamped to <=70)")
+        parser.add_argument("--min-read-length", type=int, default=50,
+                            help="Used by the trim-length sanity check "
+                                 "(trims must be at most 1/4 of it)")
+    if command == "cgr":
+        parser.add_argument("--k", type=int, default=7,
+                            help="Word size of the Chaos Game (default 7)")
+        parser.add_argument("--gs-filename", default=None,
+                            help="Reference genomic-signature file for the given k")
+        parser.add_argument("--write-gs", action="store_true",
+                            help="Also write this file's signature in .gs format")
+
+
+def _command_opts(command: str, ns, opts) -> None:
+    """Copy a command's own flags into its options, before validation
+    (``hpgq/cli/main.py:605``, ``:716-728``, ``:763-765``)."""
+    if command == "stats":
+        opts.kmers_on = ns.kmers_on
+    elif command == "prepro":
+        opts.min_quality, opts.max_quality = ns.min_quality, ns.max_quality
+        opts.ltrim_nts, opts.rtrim_nts = ns.ltrim_nts, ns.rtrim_nts
+        # the 1/4 rule (old/main_hpg_fastq_old.c:680-690), CLI only, like
+        # the legacy getopt validation
+        for flag, v in (("--rtrim-nts", ns.rtrim_nts),
+                        ("--ltrim-nts", ns.ltrim_nts)):
+            if v > ns.min_read_length // 4:
+                raise OptionsError(
+                    "%s must be at most 1/4 the value of min_read_length" % flag
+                )
+        opts.apply_trim_windows()
+    elif command == "cgr":
+        opts.k = ns.k
+        opts.gs_filename = ns.gs_filename
+        opts.write_gs = ns.write_gs
 
 
 def _parse(command: str, rest, exec_name: str, options_cls):
@@ -416,17 +484,13 @@ def _parse(command: str, rest, exec_name: str, options_cls):
 
     parser = argparse.ArgumentParser(prog="%s %s" % (exec_name, command))
     _add_common(parser, with_encoding=True)
-    if command == "stats":
-        parser.add_argument("--kmers", dest="kmers_on", action="store_true",
-                            help="Enable k-mers analysis (5-mer)")
+    _add_command_args(parser, command)
     parser.add_argument("--device", default="cuda",
                         help="Device to run on: cuda (default) or cpu")
-    _add_legacy_filter_aliases(parser)
     ns = parser.parse_args(rest)
     device = resolve_device(ns.device)
     opts = _ns_to_opts(ns, options_cls)
-    if command == "stats":
-        opts.kmers_on = ns.kmers_on
+    _command_opts(command, ns, opts)
     validate_common(opts)
     display(opts)
     return opts, device
@@ -474,6 +538,72 @@ def _filter(rest, exec_name: str) -> int:
             % (res["num_passed"], res["passed_filename"]),
             "Num. failed reads: %d (%s)"
             % (res["num_failed"], res["failed_filename"]),
+        ]
+    return _done(lines, opts, timers)
+
+
+def _edit(rest, exec_name: str) -> int:
+    from ..pipeline.run import run_edit
+
+    opts, device = _parse("edit", rest, exec_name, EditOptions)
+    timers = StageTimers()
+    res = run_edit(opts, timers, device=device)
+    lines = ["Num. edited reads : %d" % res["num_edited"]]
+    if opts.paired_end:
+        lines.append("Output files      : %s, %s"
+                     % (res["edit_1"], res["edit_2"]))
+        if opts.filter_on:
+            lines += [
+                "\nFiltering : Enabled",
+                "\tNum. passed pairs : %d" % res["num_passed"],
+                "\tNum. failed pairs : %d" % res["num_failed"],
+            ]
+    else:
+        lines.append("Output file       : %s" % res["edit_filename"])
+        if opts.filter_on:
+            lines += [
+                "\nFiltering : Enabled",
+                "\tNum. passed reads : %d (%s)"
+                % (res["num_passed"], res["edit_filename"]),
+                "\tNum. failed reads : %d (%s)"
+                % (res["num_failed"], res["failed_filename"]),
+            ]
+    return _done(lines, opts, timers)
+
+
+def _prepro(rest, exec_name: str) -> int:
+    from ..pipeline.run import run_edit
+
+    opts, device = _parse("prepro", rest, exec_name, PreproOptions)
+    timers = StageTimers()
+    res = run_edit(opts, timers, device=device)
+    lines = ["Num. preprocessed reads : %d" % res["num_edited"]]
+    if opts.paired_end:
+        lines.append("Output files            : %s, %s"
+                     % (res["edit_1"], res["edit_2"]))
+    else:
+        lines.append("Output file             : %s" % res["edit_filename"])
+    if opts.filter_on:
+        lines += [
+            "\nFiltering : Enabled",
+            "\tNum. passed reads : %d" % res["num_passed"],
+            "\tNum. failed reads : %d" % res["num_failed"],
+        ]
+    return _done(lines, opts, timers)
+
+
+def _cgr(rest, exec_name: str) -> int:
+    from ..pipeline.cgr_run import run_cgr
+
+    opts, device = _parse("cgr", rest, exec_name, CgrOptions)
+    timers = StageTimers()
+    res = run_cgr(opts, timers, device=device)
+    lines = ["Words read: %d" % res["fq_word_count"]]
+    lines += ["PGM: %s" % p for p in res["pgm_files"]]
+    if res.get("mean_dif") is not None:
+        lines += [
+            "Diff matrix mean   : %0.6f" % res["mean_dif"],
+            "Diff matrix stddev : %0.6f" % res["std_dif"],
         ]
     return _done(lines, opts, timers)
 

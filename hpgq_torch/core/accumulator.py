@@ -50,6 +50,19 @@ def from_jax_partials(host: dict, device) -> dict:
             for k, v in host.items()}
 
 
+def from_jax_cgr_acc(host: dict, device) -> dict:
+    """A JAX CGR accumulator (``cgr.zero_cgr_acc`` layout: ``table_seq``,
+    the quality table as ``table_q_hi``/``table_q_lo`` int32 limbs worth
+    ``hi * 2^16 + lo``, ``words``, as numpy arrays) -> the port's int64
+    accumulator (``cgr_torch.zero_cgr_acc`` layout) on ``device``."""
+    tq = ((np.asarray(host["table_q_hi"], dtype=np.int64) << 16)
+          + np.asarray(host["table_q_lo"], dtype=np.int64))
+    return {k: torch.tensor(v, dtype=torch.int64, device=device)
+            for k, v in (("table_seq", np.asarray(host["table_seq"])),
+                         ("table_q", tq),
+                         ("words", np.asarray(host["words"])))}
+
+
 def to_numpy(acc: dict) -> dict:
     """The accumulator dict as host numpy arrays (one device sync)."""
     return {k: v.cpu().numpy() for k, v in acc.items()}

@@ -2,9 +2,9 @@
 kernels.
 
 Torch twins of ``hpgq.kernels.stats_jnp``'s ``zero_partials``,
-``read_reductions``, ``_window_sums``, ``verdicts``, ``kmer_codes``,
-``kmer_hist2d``, ``batch_partials`` and ``merge_into``
-(``stats_jnp.py:46-185``, ``:243-391``).  :func:`fused_partials` composes
+``read_reductions``, ``_window_sums``, ``verdicts``, ``trims``,
+``apply_trims``, ``kmer_codes``, ``kmer_hist2d``, ``batch_partials`` and
+``merge_into`` (``stats_jnp.py:46-391``).  :func:`fused_partials` composes
 them into the contract of the hand-written kernels
 (``hpgq_torch.kernels.stats_cuda``), k-mers included: the CPU path runs it,
 and the GPU checks hold the kernels against it on the same tensors.
@@ -154,6 +154,58 @@ def verdicts(codes, quals, lens, crit, phred: int = PHRED33):
         ok = _bounds(ok, s - phred * w, w,
                      crit.min_right_quality, crit.max_right_quality)
     return ok & (nn <= crit.max_N)
+
+
+def trims(quals, lens, crit, phred: int = PHRED33):
+    """fastq_edit trim decision — (ltrim, rtrim) int32 [B].  [D4]
+
+    A window whose mean quality is out of its range is cut whole; the
+    right cut never reaches into the left one.  Window sums are int64 and
+    the bounds sentinel-aware (``stats_jnp.trims``): MIN means ``qn < 0``,
+    and the MAX check is skipped."""
+    crit = crit.substituted()
+    B, L = quals.shape
+    lens64 = lens.to(torch.int64)
+    mask = _pos(B, L, quals.device) < lens64[:, None]
+    lt = torch.zeros(B, dtype=torch.int64, device=quals.device)
+    rt = torch.zeros_like(lt)
+    wins = _window_sums(
+        quals, lens64,
+        crit.left_length if crit.left_length > MIN_VALUE else 0,
+        crit.right_length if crit.right_length > MIN_VALUE else 0,
+        mask,
+    )
+    for side, lo, hi in (("left", crit.min_left_quality,
+                          crit.max_left_quality),
+                         ("right", crit.min_right_quality,
+                          crit.max_right_quality)):
+        if side not in wins:
+            continue
+        s, w = wins[side]
+        ok = _bounds(torch.ones_like(w, dtype=torch.bool), s - phred * w, w,
+                     lo, hi)
+        cut = torch.where(ok, 0, w)
+        if side == "left":
+            lt = cut
+        else:
+            rt = cut
+    rt = torch.minimum(rt, lens64 - lt)
+    return lt.to(torch.int32), rt.to(torch.int32)
+
+
+def apply_trims(codes, quals, lens, lt, rt):
+    """Shift-trim packed tensors (``stats_jnp.apply_trims``): each row
+    gathered from ``min(pos + lt, L - 1)``, positions past the new length
+    filled with code 5 and quality 0 (never an N)."""
+    B, L = codes.shape
+    lt64 = lt.to(torch.int64)
+    new_lens = lens.to(torch.int64) - lt64 - rt.to(torch.int64)
+    pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
+    src = torch.clamp(pos + lt64[:, None], max=max(L - 1, 0))
+    keep = pos < new_lens[:, None]
+    nc = torch.where(keep, torch.gather(codes, 1, src), 5).to(codes.dtype)
+    nq = torch.where(keep, torch.gather(quals, 1, src), 0).to(quals.dtype)
+    return nc, nq, new_lens.to(lens.dtype)
 
 
 def batch_partials(codes, quals, lens, valid, lcap: int):

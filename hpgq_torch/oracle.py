@@ -1,18 +1,24 @@
 """Plain numpy reference of ``stats`` (single-end and paired, with the
-inline filter) and of the ``filter`` verdict.
+inline filter), of the ``filter`` verdict, of ``edit``'s trims and of
+``cgr``'s tables.
 
 It holds the port's results against the reads as they were generated: it
 takes the ``(name, seq, qual)`` records that ``tests/gen.make_records``
 returns, not the FASTQ file, so neither the shared reader nor the packer
 is on its path, and it imports nothing of ``hpgq`` or of the port.  The
 semantics are those of ``hpgq/oracle/baseline.py`` (``block_stats``,
-``block_verdicts`` and ``kmer_window_codes``; decision tags [D1]-[D5] of
-``hpgq/oracle/spec.py``), without the legacy quality position window.
+``block_verdicts``, ``block_trims`` and ``kmer_window_codes``; decision
+tags [D1]-[D5] of ``hpgq/oracle/spec.py``), without the legacy quality
+position window, and of ``hpgq/oracle/cgr.py`` with any byte other than
+A, C, G or T breaking a word ([D7]).
 
     want = reference_stats(records, read_quality_range=(20, 60), max_N=2)
     assert_counters_equal(got, want, "label")
     ok = reference_verdicts(records, read_quality_range=(20, 60), max_N=2)
     passed_fq = fastq_bytes(records, ok)
+    lt, rt = reference_trims(records, left=(10, (28, 60)))
+    edit_fq = trimmed_fastq_bytes(records, lt, rt)
+    table_seq, table_q, words = reference_cgr(records, k=7)
 
 Reads are taken in order of length, in chunks of about :data:`CHUNK_ELEMS`
 padded bases, so a few long reads do not widen every chunk.
@@ -117,20 +123,25 @@ def _verdicts(codes, quals, lens, mask, phred, thr):
         nq = quals - phred
         out = (((nq < min_q) | (nq > max_q)) & mask).sum(axis=1)
         ok &= out <= thr["max_oq"]
-    pos = np.arange(codes.shape[1], dtype=np.int64)[None, :]
     for side in ("left", "right"):
         length, lo, hi = thr[side]
-        if length <= MIN_VALUE:
-            continue
-        w = np.minimum(lens, length)
-        if side == "left":
-            wmask = pos < w[:, None]
-        else:
-            wmask = (pos >= (lens - w)[:, None]) & mask
-        wqn = np.where(wmask, quals, 0).sum(axis=1) - phred * w
-        ok &= (lo * w <= wqn) & (wqn <= hi * w)
+        if length > MIN_VALUE:
+            wqn, w = _window_qn(side, length, quals, lens, mask, phred)
+            ok &= (lo * w <= wqn) & (wqn <= hi * w)
     ok &= ((codes == BASE_N) & mask).sum(axis=1) <= thr["max_N"]
     return ok
+
+
+def _window_qn(side, length, quals, lens, mask, phred):
+    """(quality sum minus ``phred`` per base, width) of each read's
+    ``length``-base window at its ``side`` end, clipped to the read [D3]."""
+    pos = np.arange(quals.shape[1], dtype=np.int64)[None, :]
+    w = np.minimum(lens, length)
+    if side == "left":
+        wmask = pos < w[:, None]
+    else:
+        wmask = (pos >= (lens - w)[:, None]) & mask
+    return np.where(wmask, quals, 0).sum(axis=1) - phred * w, w
 
 
 def _kmers(codes, lens):
@@ -208,6 +219,82 @@ def fastq_bytes(records, select) -> bytes:
     what a ``filter`` output file of those records must hold."""
     return b"".join(b"%s\n%s\n+\n%s\n" % r
                     for r, s in zip(records, select) if s)
+
+
+def reference_trims(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
+                    left=None, right=None):
+    """The ``edit`` trims of each record, ``(lt, rt)`` int64 arrays in
+    input order ([D4], ``hpgq/oracle/baseline.py:block_trims``): a
+    ``left``/``right`` window ``(length, (lo, hi))`` whose mean quality is
+    outside ``[lo, hi]`` is cut whole, and the right cut never reaches into
+    the left one."""
+    lt = np.zeros(len(records), np.int64)
+    rt = np.zeros(len(records), np.int64)
+    for idx, _, quals, lens, mask in _chunks(records, phred, chunk):
+        cut = {}
+        for side, spec in (("left", left), ("right", right)):
+            length, lo, hi = _window(spec)
+            cut[side] = np.zeros(len(idx), np.int64)
+            if length > MIN_VALUE:
+                wqn, w = _window_qn(side, length, quals, lens, mask, phred)
+                cut[side] = np.where((wqn < lo * w) | (wqn > hi * w), w, 0)
+        lt[idx] = cut["left"]
+        rt[idx] = np.minimum(cut["right"], lens - cut["left"])
+    return lt, rt
+
+
+def trimmed_records(records, lt, rt):
+    """The records with ``lt`` bases cut from the left of the sequence and
+    quality, ``rt`` from the right."""
+    return [(n, s[a:len(s) - b], q[a:len(q) - b])
+            for (n, s, q), a, b in zip(records, lt, rt)]
+
+
+def trimmed_fastq_bytes(records, lt, rt, select=None) -> bytes:
+    """What an ``edit`` output file of the trimmed records where
+    ``select`` is True (all when None) must hold, in input order."""
+    if select is None:
+        select = np.ones(len(records), bool)
+    return fastq_bytes(trimmed_records(records, lt, rt), select)
+
+
+# the chaos game's x and y bit of each base code (A C G T N other)
+_CGR_X = np.array([1, 0, 0, 1, 0, 0], np.int32)
+_CGR_Y = np.array([0, 0, 1, 1, 0, 0], np.int32)
+
+
+def reference_cgr(records, k: int, phred: int = 33, chunk: int = CHUNK_ELEMS):
+    """``cgr``'s tables over ``records``: ``(table_seq, table_q, words)``,
+    int64 ``[2^k, 2^k]`` tables and the word count.  A word is a window of
+    k bases inside one read holding only A, C, G or T (either case; an N or
+    any other byte breaks it, [D7]); its cell is the k-bit x and y codes of
+    the chaos game's closed form (``hpgq/kernels/cgr.py:1-23``: the base at
+    window offset ``t`` weighs ``2^t``, x set for A and T, y for G and T),
+    and its quality weight is the window's quality sum minus ``phred*k``."""
+    dim = 1 << k
+    cell_of = _CGR_X * dim + _CGR_Y  # a base's bits as a cell offset
+    table_seq = np.zeros(dim * dim, np.int64)
+    table_q = np.zeros(dim * dim, np.int64)
+    words = 0
+    for _, codes, quals, lens, _ in _chunks(records, phred, chunk):
+        W = codes.shape[1] - k + 1
+        if W <= 0:
+            continue
+        q = quals.astype(np.int32)
+        cell = np.zeros(codes[:, :W].shape, np.int32)  # k <= 15
+        qsum = np.zeros(cell.shape, np.int32)
+        ok = np.arange(W)[None, :] + k <= lens[:, None]
+        for t in range(k):
+            part = codes[:, t:t + W]
+            cell += cell_of[part] << t
+            qsum += q[:, t:t + W]
+            ok &= part < 4
+        words += int(ok.sum())
+        table_seq += np.bincount(cell[ok], minlength=dim * dim)
+        # float64 weights add exactly: a chunk's total stays far below 2^53
+        table_q += np.rint(np.bincount(cell[ok], weights=qsum[ok] - phred * k,
+                                       minlength=dim * dim)).astype(np.int64)
+    return table_seq.reshape(dim, dim), table_q.reshape(dim, dim), words
 
 
 def reference_paired_stats(records1, records2, phred: int = 33,

@@ -1,7 +1,8 @@
-"""The `stats` and `filter` pipelines, single-end and paired-end.
+"""The `stats`, `filter` and `edit` pipelines, single-end and paired-end.
 
-The port of ``hpgq/pipeline/run.py``'s ``run_stats`` (``:463-602``) and
-``run_filter`` (``:756-860``) with their helpers: the concurrent shard
+The port of ``hpgq/pipeline/run.py``'s ``run_stats`` (``:463-602``),
+``run_filter`` (``:756-860``) and ``run_edit`` (``:951-1152``, which
+`prepro` runs too) with their helpers: the concurrent shard
 readers of ``_run_stats_parallel`` / ``_run_stats_parallel_paired``
 (``:356-460``) and ``_run_output_parallel`` (``:609-753``), the lockstep
 mate iterator and ``_OutputCheckpointer`` (``:863-944``).  What changed on
@@ -19,8 +20,9 @@ the way:
   above it; ``--kmers`` rides on either kernel's pass mask.
 
 Paired-end: mates stream in lockstep, and a pair counts (stats with a
-filter) or passes (filter) only when both mates pass.  ``--sharded`` and
-``--profile-dir`` raise ``NotImplementedError`` naming their ROADMAP item.
+filter) or passes (filter, edit's post-filter) only when both mates pass.
+``--sharded`` and ``--profile-dir`` raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from ..io.fastq import (
     coalesce_blocks,
 )
 from ..io.packer import round_up
-from ..options import FilterOptions, StatsOptions
+from ..options import EditOptions, FilterOptions, StatsOptions
 from ..pipeline.prefetch import prefetched
 from ..report.stats_report import stats_report
 from ..utils.checkpoint import (
@@ -54,7 +56,7 @@ from ..utils.checkpoint import (
 from ..utils.timers import StageTimers
 
 from ..device import resolve_device
-from ..kernels.stats_torch import verdicts
+from ..kernels.stats_torch import apply_trims, trims, verdicts
 from .ranges import range_splittable, split_byte_ranges, split_paired_ranges
 from .session import (
     PairedStatsSession,
@@ -773,3 +775,162 @@ class _OutputCheckpointer:
     def complete(self):
         if self.path and os.path.exists(self.path):
             os.unlink(self.path)
+
+
+# ---------------------------------------------------------------------------
+# edit (and prepro, which is an edit run with its own output names)
+# ---------------------------------------------------------------------------
+
+def _edit_one(opts):
+    """The trim + post-filter of one mate (``hpgq/pipeline/run.py:
+    957-966``): ``(lt, rt, ok)``, where ``ok`` is the verdict of the
+    trimmed read under the criteria without their windows, or ``valid``
+    when the post-filter is off."""
+    crit = opts.criteria
+    phred = opts.quality_encoding_value
+    filter_on = opts.filter_on
+    post_crit = crit.without_windows()
+
+    def one(codes, quals, lens, valid):
+        lt, rt = trims(quals, lens, crit, phred)
+        if not filter_on:
+            return lt, rt, valid
+        nc, nq, nl = apply_trims(codes, quals, lens, lt, rt)
+        return lt, rt, verdicts(nc, nq, nl, post_crit, phred) & valid
+
+    return one
+
+
+def _make_edit_fn(opts, br: int, dev):
+    return ShapeCachedFn(_edit_one(opts), br, dev, qn_ok=True)
+
+
+def _make_edit_pair_fn(opts, br: int, dev):
+    """Both mates in one call; a pair is kept only when both mates pass
+    the post-filter."""
+    one = _edit_one(opts)
+
+    def fn(c1, q1, l1, v1, c2, q2, l2, v2):
+        lt1, rt1, ok1 = one(c1, q1, l1, v1)
+        lt2, rt2, ok2 = one(c2, q2, l2, v2)
+        return lt1, rt1, lt2, rt2, ok1 & ok2
+
+    return ShapeCachedPairFn(fn, br, dev, qn_ok=True)
+
+
+_EDIT_COUNTS = ("num_edited", "num_passed", "num_failed")
+
+
+def _num_edited(lt, rt) -> int:
+    return int(((lt > 0) | (rt > 0)).sum())
+
+
+def run_edit(opts: EditOptions, timers: Optional[StageTimers] = None,
+             device="cuda"):
+    """The `edit` command on ``device``: ``edit.fq`` (and ``failed.fq``
+    with the post-filter), or ``edit_1.fq``/``edit_2.fq`` (and
+    ``failed_1.fq``/``failed_2.fq``) for paired input, where a pair is
+    discarded when either mate fails; ``opts.out_names`` overrides the
+    edit names (`prepro` writes ``<input>.valid``).  Returns the counts
+    and the output paths."""
+    dev = resolve_device(device)
+    _check_ported(opts, opts.command_name or "edit")
+    timers = timers or StageTimers()
+    if _output_parallel_eligible(opts, dev):
+        return _run_output_parallel(opts, timers, run_edit, _EDIT_COUNTS, dev)
+    br = _batch_reads(opts, dev)
+    out = {k: 0 for k in _EDIT_COUNTS}
+    if opts.paired_end:
+        return _run_edit_paired(opts, timers, br, dev, out)
+
+    efn = _make_edit_fn(opts, br, dev)
+    names = getattr(opts, "out_names", None) or ("edit.fq",)
+    edit_path = os.path.join(opts.out_dirname, names[0])
+    failed_path = os.path.join(opts.out_dirname, "failed.fq")
+    out["edit_filename"] = edit_path
+    out["failed_filename"] = failed_path if opts.filter_on else None
+    paths = {"edit": edit_path}
+    if opts.filter_on:
+        paths["failed"] = failed_path
+    ck = _OutputCheckpointer(opts, "edit", opts.criteria, paths, out,
+                             _EDIT_COUNTS)
+    start, sizes = ck.resume()
+    rng = getattr(opts, "input_range", None) or (0, None)
+    with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
+                     start_offset=max(start, rng[0]),
+                     end_offset=rng[1]) as rd, \
+            contextlib.ExitStack() as stack:
+        writers = {k: stack.enter_context(FastqWriter(
+            p, append_at=sizes.get(k))) for k, p in paths.items()}
+        pump = stack.enter_context(AsyncSpanPump())
+        for block, (lt, rt, ok) in _iter_with(
+                _coalesced(opts, rd, dev), efn, timers,
+                depth=getattr(opts, "batch_list_size", 0)):
+            _count(timers, block)
+            with timers.stage("write"):
+                out["num_edited"] += _num_edited(lt, rt)
+                if opts.filter_on:
+                    out["num_passed"] += block.write_trimmed(
+                        writers["edit"], lt, rt, select=ok, pump=pump)
+                    out["num_failed"] += block.write_trimmed(
+                        writers["failed"], lt, rt, select=~ok, pump=pump)
+                else:
+                    block.write_trimmed(writers["edit"], lt, rt, pump=pump)
+            ck.step(block, writers, timers, pre_save=pump.drain)
+        pump.close()
+    ck.complete()
+    return out
+
+
+def _run_edit_paired(opts, timers, br, dev, out):
+    """The paired branch of `edit` (``hpgq/pipeline/run.py:1079-1152``).
+    The writers open (truncating) only after both readers have opened, so
+    a bad mate-2 path leaves the previous run's outputs as they were."""
+    names = getattr(opts, "out_names", None) or ("edit_1.fq", "edit_2.fq")
+    paths = {"edit_1": os.path.join(opts.out_dirname, names[0]),
+             "edit_2": os.path.join(opts.out_dirname, names[1])}
+    if opts.filter_on:
+        paths["failed_1"] = os.path.join(opts.out_dirname, "failed_1.fq")
+        paths["failed_2"] = os.path.join(opts.out_dirname, "failed_2.fq")
+    ck = _OutputCheckpointer(opts, "edit-paired", opts.criteria, paths, out,
+                             _EDIT_COUNTS)
+    start1, sizes, aux = ck.resume(aux_keys=("offset2",))
+    rng1 = getattr(opts, "input_range", None) or (0, None)
+    rng2 = getattr(opts, "input_range2", None) or (0, None)
+    with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
+                     start_offset=max(start1, rng1[0]),
+                     end_offset=rng1[1]) as r1, \
+            FastqReader(opts.in_filename2,
+                        batch_size=_reader_batch(opts, dev),
+                        start_offset=max(aux.get("offset2", 0), rng2[0]),
+                        end_offset=rng2[1]) as r2, \
+            contextlib.ExitStack() as stack:
+        w = {k: stack.enter_context(FastqWriter(p, append_at=sizes.get(k)))
+             for k, p in paths.items()}
+        pump = stack.enter_context(AsyncSpanPump())
+        pefn = _make_edit_pair_fn(opts, br, dev)
+        pairs = _iter_blocks_paired(_coalesced(opts, r1, dev),
+                                    _coalesced(opts, r2, dev), timers)
+        for (b1, b2), (lt1, rt1, lt2, rt2, both) in _iter_with(
+                pairs, lambda p: pefn(*p), timers):
+            with timers.stage("write"):
+                out["num_edited"] += _num_edited(lt1, rt1) + _num_edited(
+                    lt2, rt2)
+                if opts.filter_on:
+                    out["num_passed"] += b1.write_trimmed(
+                        w["edit_1"], lt1, rt1, select=both, pump=pump)
+                    b2.write_trimmed(w["edit_2"], lt2, rt2, select=both,
+                                     pump=pump)
+                    out["num_failed"] += b1.write_trimmed(
+                        w["failed_1"], lt1, rt1, select=~both, pump=pump)
+                    b2.write_trimmed(w["failed_2"], lt2, rt2, select=~both,
+                                     pump=pump)
+                else:
+                    b1.write_trimmed(w["edit_1"], lt1, rt1, pump=pump)
+                    b2.write_trimmed(w["edit_2"], lt2, rt2, pump=pump)
+            ck.step(b1, w, timers, aux={"offset2": b2.end_offset},
+                    pre_save=pump.drain)
+        pump.close()
+    ck.complete()
+    out.update(paths)
+    return out

@@ -245,10 +245,21 @@ def to_device(packed: tuple, device, non_blocking: bool = False,
     return tuple(move(x) for x in packed)
 
 
+def thread_stream(local: threading.local, device):
+    """On a CUDA device, the calling thread's own stream (made once, kept
+    in ``local``) as the current stream; a no-op context elsewhere."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    s = getattr(local, "stream", None)
+    if s is None:
+        s = local.stream = torch.cuda.Stream(device)
+    return torch.cuda.stream(s)
+
+
 class ShapeCachedFn:
     """``fn(block) -> numpy outputs[:n]`` around a device function
     ``fn(codes, quals, lens, valid)`` that returns a tensor or a tuple of
-    tensors of one row per read (the filter verdict; edit's trims later).
+    tensors of one row per read (the filter verdict, edit's trims).
 
     The port of ``hpgq/pipeline/session.py:297-428``.  The name is kept so
     the counterpart is easy to find, but eager PyTorch has no shape cache:
@@ -315,20 +326,12 @@ class ShapeCachedFn:
             return wire_unbits2c(*x)
         return wire_unbits(x)
 
-    def _stream(self):
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        s = getattr(self._local, "stream", None)
-        if s is None:
-            s = self._local.stream = torch.cuda.Stream(self.device)
-        return torch.cuda.stream(s)
-
     def _run(self, blocks):
         n = blocks[0].num_reads
         lmax = round_up(max(max(b.max_len() for b in blocks), 1), 128)
         rows = batch_rows(n, lmax, self.batch_reads)
         keep = []  # pinned sources, alive until the read-back below
-        with self._stream():
+        with thread_stream(self._local, self.device):
             args = []
             for b in blocks:
                 args += self._mate(b, lmax, rows, keep)

@@ -3,16 +3,17 @@
 
 * With ``jax``, ``jaxlib`` and ``hpgq`` blocked in ``sys.modules`` (as
   ``chip_smoke.py`` blocks them), a subprocess imports every module of
-  ``hpgq_torch`` and runs the port's ``stats`` (CLI and API) and
-  ``filter_reads`` on the CPU over the corpus of ``tests/test_golden.py``;
-  the files they write equal ``hpgq``'s frozen outputs in
-  ``tests/golden/``.
+  ``hpgq_torch`` and runs the port's ``stats`` (CLI and API),
+  ``filter_reads``, and the ``edit``, ``prepro`` and ``cgr`` CLI commands
+  on the CPU over the corpora of ``tests/test_golden.py``; the files they
+  write equal ``hpgq``'s frozen outputs in ``tests/golden/``.
 * The port's packer and ``hpgq``'s give byte-identical buffers and
   sidecars on every wire tier, over the same blocks.
 * The port's report writer and ``hpgq``'s write byte-identical files from
   the same counters.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -35,9 +36,11 @@ GOLDEN_CORPUS = dict(min_len=40, max_len=60, n_prob=0.02,
                      lowercase_prob=0.05, seed=77)  # tests/test_golden.py
 
 _ISOLATED_RUN = r"""
-import os, pkgutil, importlib, sys
+import json, os, pkgutil, importlib, sys
 
-repo, path, out_stats, out_filter = sys.argv[1:5]
+repo, path = sys.argv[1:3]
+outs, corpora = json.loads(sys.argv[3]), json.loads(sys.argv[4])
+out_stats, out_filter = outs["stats"], outs["filter"]
 sys.path[:0] = [repo, os.path.join(repo, "tests")]
 import chip_smoke
 
@@ -61,6 +64,21 @@ c = hpgq_torch.stats(path, outdir=out_stats, kmers=True,
                      device="cpu")
 hpgq_torch.filter_reads(path, outdir=out_filter, read_quality_range=(20, 40),
                         max_N=2, device="cpu")
+# the CLI flows of tests/test_golden.py:97-141
+for name, argv in (
+        ("edit", ["edit", "-f", path, "--left-length", "8",
+                  "--left-quality-range", "28,60", "--right-length", "6",
+                  "--right-quality-range", "28,60", "--read-quality-range",
+                  "20,45"]),
+        ("prepro", ["prepro", "-f", path, "--ltrim-nts", "5", "--rtrim-nts",
+                    "3", "--min-quality", "27", "--max-quality", "64"]),
+        ("cgr", ["cgr", "-f", corpora["cgr"], "--k", "5"]),
+        ("cgr_gs", ["cgr", "-f", corpora["cgr_gs"], "--k", "5",
+                    "--write-gs"]),
+        ("cgr_diff", ["cgr", "-f", corpora["cgr_diff"], "--k", "5",
+                      "--gs-filename",
+                      os.path.join(outs["cgr_gs"], "ga.fq_k=5.gs")])):
+    assert main(argv + ["-o", outs[name], "--device", "cpu"]) == 0, argv
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in chip_smoke.BLOCKED
                 and sys.modules[m] is not None)
@@ -95,13 +113,18 @@ def isolated_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("isolated")
     path = str(tmp / "in.fq")
     make_fastq(path, 300, **GOLDEN_CORPUS)
-    outs = {k: str(tmp / k) for k in ("stats", "filter")}
+    corpora = {}
+    for sub, name, seed in (("cgr", "cg.fq", 78), ("cgr_gs", "ga.fq", 79),
+                            ("cgr_diff", "gb.fq", 80)):
+        corpora[sub] = str(tmp / name)
+        make_fastq(corpora[sub], 300, **dict(GOLDEN_CORPUS, seed=seed))
+    outs = {k: str(tmp / k) for k in COMMANDS}
     for d in outs.values():
         os.makedirs(d)
     env = dict(os.environ, HPGQ_CHARTS="off")
     res = subprocess.run(
-        [sys.executable, "-c", _ISOLATED_RUN, REPO, path, outs["stats"],
-         outs["filter"]], capture_output=True, text=True, cwd=str(tmp),
+        [sys.executable, "-c", _ISOLATED_RUN, REPO, path, json.dumps(outs),
+         json.dumps(corpora)], capture_output=True, text=True, cwd=str(tmp),
         env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     ok, n, passed, failed = res.stdout.split()[-4:]
@@ -112,7 +135,11 @@ def isolated_run(tmp_path_factory):
     return outs
 
 
-@pytest.mark.parametrize("command", ["stats", "filter"])
+COMMANDS = ("stats", "filter", "edit", "prepro", "cgr", "cgr_gs",
+            "cgr_diff")
+
+
+@pytest.mark.parametrize("command", COMMANDS)
 def test_isolated_port_writes_golden_outputs(isolated_run, command):
     _same_tree(isolated_run[command], os.path.join(GOLDEN, command))
 

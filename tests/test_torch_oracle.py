@@ -5,7 +5,9 @@ The same generated reads go through ``hpgq.oracle.baseline`` (by way of the
 shared reader and packer) and through ``reference_stats`` (from the
 records themselves); every integer counter must be equal, the k-mer
 tables too when asked for, and ``acc_quality`` within 1e-9 relative (both
-sum the same f32 means in f64, only in another order).
+sum the same f32 means in f64, only in another order).  The trims equal
+``block_trims`` and ``spec.trim_lengths``, the CGR tables the reference's
+loop (``hpgq.oracle.cgr.fill_tables_loop``), exactly.
 """
 
 import dataclasses
@@ -23,9 +25,13 @@ from hpgq_torch.api import filter_criteria
 from hpgq_torch.oracle import (
     assert_counters_equal,
     fastq_bytes,
+    reference_cgr,
     reference_paired_stats,
     reference_stats,
+    reference_trims,
     reference_verdicts,
+    trimmed_fastq_bytes,
+    trimmed_records,
 )
 
 CORPORA = {
@@ -209,3 +215,106 @@ def test_fastq_bytes_is_the_written_file(tmp_path):
     sel = np.arange(len(records)) % 3 == 1
     assert fastq_bytes(records, sel) == b"".join(
         b"%s\n%s\n+\n%s\n" % records[i] for i in np.flatnonzero(sel))
+
+
+TRIMS = {
+    "left": dict(left=(10, (28, 60))),
+    "right": dict(right=(12, (20, None))),
+    "both": dict(left=(8, (28, 60)), right=(6, (28, 60))),
+    "windows past the read": dict(left=(300, (25, None)),
+                                  right=(200, (15, 40))),
+}
+
+
+@pytest.mark.parametrize("setting", list(TRIMS))
+@pytest.mark.parametrize("corpus", ["golden", "varlong", "long"])
+def test_reference_trims_equal_block_trims_and_spec(tmp_path, corpus,
+                                                    setting):
+    """``reference_trims`` (length-ordered chunks, input order out) equals
+    ``baseline.block_trims`` over the packed blocks and the per-read
+    ``spec.trim_lengths``."""
+    from hpgq.oracle import spec
+
+    path, records = _records(tmp_path, corpus)
+    kw = TRIMS[setting]
+    crit = filter_criteria(**kw)
+    want = []
+    with FastqReader(path, batch_size=512) as rd:
+        for block in rd:
+            codes, quals, lens, _ = pack_block(block)
+            lt, rt = ob.block_trims(quals, lens, crit, 33)
+            want.append(np.stack([lt, rt])[:, :block.num_reads])
+    want = np.concatenate(want, axis=1)
+    sub = crit.substituted()
+    per_read = np.array([spec.trim_lengths(s, q, sub, 33)
+                         for _, s, q in records]).T
+    np.testing.assert_array_equal(per_read, want)
+    for chunk in (4096, 1 << 26):
+        lt, rt = reference_trims(records, chunk=chunk, **kw)
+        np.testing.assert_array_equal(np.stack([lt, rt]), want)
+    assert want.any()
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["single", "paired"])
+def test_trimmed_fastq_bytes_are_hpgq_edit_outputs(tmp_path, paired):
+    """The trims and the post-filter verdict of the trimmed reads give
+    ``hpgq.edit``'s ``edit`` and ``failed`` files byte for byte."""
+    import hpgq
+
+    path, r1 = _records(tmp_path, "varlong")
+    inputs, recs = [path], [r1]
+    if paired:
+        inputs.append(str(tmp_path / "mate2.fq"))
+        kw = dict(CORPORA["varlong"], seed=17)
+        recs.append(make_fastq(inputs[1], kw.pop("n"), **kw))
+    post = dict(read_quality_range=(20, 45), max_N=2)
+    res = hpgq.edit(*inputs, outdir=str(tmp_path / "out"), left_length=8,
+                    left_quality_range=(28, 60), right_length=6,
+                    right_quality_range=(28, 60), filter_after=True, **post)
+    trims = [reference_trims(r, **TRIMS["both"]) for r in recs]
+    sel = np.ones(len(r1), bool)
+    for r, (lt, rt) in zip(recs, trims):
+        sel &= reference_verdicts(trimmed_records(r, lt, rt), **post)
+    names = (["edit.fq"], ["failed.fq"]) if not paired else (
+        ["edit_1.fq", "edit_2.fq"], ["failed_1.fq", "failed_2.fq"])
+    for group, s in zip(names, (sel, ~sel)):
+        for name, r, (lt, rt) in zip(group, recs, trims):
+            with open(str(tmp_path / "out" / name), "rb") as f:
+                assert f.read() == trimmed_fastq_bytes(r, lt, rt, s), name
+    assert res["num_passed"] == int(sel.sum()) > 0
+    assert res["num_edited"] == sum(int(((lt > 0) | (rt > 0)).sum())
+                                    for lt, rt in trims)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_reference_cgr_equals_loop_oracle(tmp_path, k):
+    """``reference_cgr`` equals the reference's CGR loop over the packed
+    blocks, with code 5 (IUPAC bytes, planted here) mapped to N: the
+    kernels treat such bytes as N ([D7])."""
+    from gen import make_records, write_fastq
+    from hpgq.oracle.cgr import fill_tables_loop
+
+    records = make_records(250, min_len=0, max_len=90, n_prob=0.03,
+                           lowercase_prob=0.05, seed=40 + k)
+    rng = np.random.default_rng(k)
+    for i in rng.choice(len(records), 60, replace=False):
+        name, seq, qual = records[i]
+        if seq:
+            j = int(rng.integers(len(seq)))
+            records[i] = (name, seq[:j] + b"R" + seq[j + 1:], qual)
+    path = str(tmp_path / "cgr.fq")
+    write_fastq(path, records)
+    dim = 1 << k
+    want = [np.zeros((dim, dim), np.int64), np.zeros((dim, dim), np.int64), 0]
+    with FastqReader(path, batch_size=100) as rd:
+        for block in rd:
+            codes, quals, lens, valid = pack_block(block)
+            codes = np.where(codes == 5, np.int8(4), codes)
+            for i, x in enumerate(fill_tables_loop(codes, quals, lens, valid,
+                                                   k, 33)):
+                want[i] += x
+    for chunk in (2000, 1 << 26):
+        ts, tq, words = reference_cgr(records, k, chunk=chunk)
+        np.testing.assert_array_equal(ts, want[0])
+        np.testing.assert_array_equal(tq, want[1])
+        assert words == want[2] > 0
