@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # phases 1-5 and 7-12 (one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5 and 7-13 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
@@ -36,24 +36,30 @@ Phases, each printing its own lines:
    ragged, empty, all-invalid and any-byte-code batches, one to seven
    reads with lengths on and off the 512-column tile edges, a width that
    is no multiple of 16, five filter settings (and a minimum quality
-   alone at 24576, where the MAX sentinel times the length passes int32),
-   k-mers off and on; every integer field and the pass mask exact,
+   alone at 24576, where the MAX sentinel times the length passes int32;
+   the legacy quality window [D8] across the 512-column tile edge, 500-900,
+   and past every read's end, 4000-40000), k-mers off and on; every
+   integer field and the pass mask exact,
    ``acc_quality`` to 1e-4.  Also at phase 8's batch shape (512 x 89472,
    mixed lengths, padding rows) and on the 512 x 32768 timed batch, with
    the NanoFilt-style filter too.  Then K2 timed against the twin on
    both, as in phase 3.
 8. Long reads end to end: about 10,000 reads of 2-30 kb plus a few dozen
    of 66-90 kb (lcap past 65536), unbinned qualities; ``hpgq_torch.stats``
-   with ``kmers=True`` and with a NanoFilt-style filter, each held against
-   the reference (k-mer tables too), with K2 launches required; then
-   reads/s and bases/s of three warm passes.
+   with ``kmers=True``, with a NanoFilt-style filter and with a mean
+   quality screen over the [D8] window 500-900 (``--start-quality-nt`` /
+   ``--end-quality-nt``), each held against the reference (k-mer tables
+   too), with K2 launches required; then reads/s and bases/s of three warm
+   passes.
 9. Paired stats: 1,000,000 pairs of 2 x 100 bp (mate 1 is phase 4's
    corpus, mate 2 the same recipe with seed 8); ``hpgq_torch.stats(m1,
    m2)`` with the bench filter and with none, both mates held against
    ``oracle.reference_paired_stats`` (statistics over the pairs where both
    mates pass, tallies per pair), every mate batch on the 2u tier: with
    the filter decoded for the pair verdict and sent to K1's plain entry,
-   without it sent to the 2u entry; then pairs/s of three warm passes.
+   without it sent to the 2u entry.  Then 2,008 pairs of long reads with
+   the NanoFilt-style filter: every mate batch launches K2, both mates
+   equal to the reference.  Then pairs/s of three warm passes.
 10. Filter: ``hpgq_torch.filter_reads`` single-end over phase 4's corpus
     (2c tier), paired over phase 9's pairs, and with the NanoFilt-style
     thresholds over phase 8's long reads (qn8 tier); every output file
@@ -79,22 +85,40 @@ Phases, each printing its own lines:
     ``.gs`` gives a zero diff.  ``cgr_batch_tables`` on the card at k=10
     and on the poly-A batch whose quality cell passes 2^31, exact.  Reads/s
     of three warm passes, and the device ms per batch of one profiled pass.
+13. ``--sharded``: ``hpgq_torch.stats(..., sharded=True)`` with the bench
+    filter over phase 4's corpus at world size 1, in this process with no
+    launcher (no process group) and in one subprocess with torch's launcher
+    variables (a gloo group of one over ``env://``); the legacy ``python -m
+    hpgq_torch --qc --filter`` run, whose ``.valid``/``.invalid`` files equal phase 10's
+    selection and whose two summaries equal the reports of the reference
+    over each; then two ranks sharing the card, each a subprocess of this
+    script (``--rank-worker``) in a gloo group made over ``file://``:
+    ``stats``, paired
+    ``stats`` (phase 9's pairs), long-read ``stats`` (phase 8's, K2),
+    ``filter`` and ``edit`` (the CLI, concatenated outputs byte-equal to
+    the reference's), ``cgr`` k=7 (tables, PGM and ``.gs``); both ranks
+    equal, rank 0 alone writes the reports.  Reads/s of one warm world-1
+    and one world-2 pass.  ``--ranks N`` runs N ranks instead of two: on
+    a machine with N cards each rank has its own (``--phases 13 --ranks 4``
+    on four cards).
 
-Phases 9-12 reuse the corpora of phases 4 and 8, and write them when
+Phases 9-13 reuse the corpora of phases 4 and 8, and write them when
 those phases are not selected.  On an NVIDIA H100 80GB HBM3 (700 W) the
-default run takes about 390 s of command time, the build included;
+default run takes about 500 s of command time, the build included;
 ``--phases 9,10`` alone takes about 135 s and ``--phases 11,12`` about
-235 s, since each writes all three corpora itself (about 50 s).  The
+235 s, since each writes all three corpora itself (about 50 s);
+``--phases 7,8,9,13`` took 323 s.  The
 kernels line gives K1's plain and 2u entries and K2 with their launches
-on the paths that drive them (phase 4 and 9's unfiltered run for the 2u
-entry; phases 5, 9's filtered run and 11's stats over the trimmed short
-reads for the plain entry; phase 8 and 11's stats over the trimmed long
-reads for K2).
+on the paths that drive them (phase 4, 9's unfiltered run and 13's
+sharded stats for the 2u entry; phases 5, 9's filtered run, 11's stats
+over the trimmed short reads and 13's sharded paired stats for the plain
+entry; phase 8, 9's long pairs, 11's stats over the trimmed long reads
+and 13's sharded long-read stats for K2).
 
 Imports nothing of jax and nothing of the JAX package ``hpgq``: the run
-blocks ``import jax`` and ``import hpgq``, so a path that needed either
-would fail here.  Any failure exits non-zero before the result
-lines; the last line is ``{"ok": true, "device": {...}}``.
+and every rank it starts block ``import jax`` and ``import hpgq``, so a
+path that needed either would fail here.  Any failure exits non-zero
+before the result lines; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -632,6 +656,14 @@ def phase_k2(dev):
     sentinel = {"min quality only": filter_criteria(
         read_quality_range=(5, None))}
     nanofilt = {"nanofilt": filter_criteria(**LONG_FILTER)}
+    # [D8] windows: one across the 512-column tile edge (the 500-900 of
+    # tools/validate_device.py:308-345), one that ends past every read
+    windows = {
+        "window 500-900": filter_criteria(read_quality_range=(15, 40),
+                                          max_out_of_quality=100,
+                                          quality_window=(500, 900)),
+        "window 4000-40000": filter_criteria(read_quality_range=(15, 40),
+                                             quality_window=(4000, 40000))}
     # phase 8's batches: a 16 MB block of ~490 reads of 2-30 kb (one of
     # 66-90 kb among them) padded to 512 rows, in lcap 89,472
     rng = np.random.default_rng(798)
@@ -640,7 +672,7 @@ def phase_k2(dev):
     long_lens[490:] = 0
     cases = [
         # (label, B, L, lcap, lens, valid_frac, extra settings)
-        ("256x4608 lcap 4608", 256, 4608, 4608, None, 0.9, {}),
+        ("256x4608 lcap 4608", 256, 4608, 4608, None, 0.9, windows),
         ("100x8192 lcap 8192", 100, 8192, 8192, None, 0.9, {}),
         ("64x4608 lcap 8192", 64, 4608, 8192, None, 0.9, {}),
         ("32x24576 full length", 32, 24576, 24576, np.full(32, 24576), 0.9,
@@ -657,7 +689,8 @@ def phase_k2(dev):
           np.array([30016, 511, 512, 513, 1025, 16383, 29999][:b]), 1.0, {})
          for b in range(1, 8)] + [
         ("ragged 9x20007 (L % 16 != 0)", 9, 20007, 20096,
-         np.array([20007, 0, 1, 15, 17, 4099, 10000, 20006, 512]), 1.0, {}),
+         np.array([20007, 0, 1, 15, 17, 4099, 10000, 20006, 512]), 1.0,
+         windows),
         ("codes of any byte 64x8192", 64, 8192, 8192, None, 0.9, {}),
     ]
     max_err = 0.0
@@ -742,21 +775,45 @@ def long_corpus(tmp):
     return cached_corpus(os.path.join(tmp, "long_reads.fq"), long_read_corpus)
 
 
+def run_stats_kw(path, outdir, device, quality_window=None, **kw):
+    """``hpgq_torch.stats(path, **kw)``; with ``quality_window``, the
+    legacy [D8] window that only the CLI's ``--start-quality-nt`` and
+    ``--end-quality-nt`` set, put on the options as
+    ``tools/validate_device.py:308-345`` puts it."""
+    import hpgq_torch
+    from hpgq_torch.api import filter_criteria
+    from hpgq_torch.options import StatsOptions
+    from hpgq_torch.pipeline.run import run_stats
+
+    if quality_window is None:
+        return hpgq_torch.stats(path, outdir=outdir, device=device, **kw)
+    return run_stats(StatsOptions(
+        in_filename=path, out_dirname=outdir, quality_encoding_name="phred33",
+        criteria=filter_criteria(quality_window=quality_window, **kw),
+        filter_on=True), device=device)
+
+
+# a window across K2's 512-column tile edge, at a mean quality range that
+# splits the corpus (qualities 2-41: a 400-base mean near 21.5)
+LONG_WINDOW = dict(read_quality_range=(21, 22), quality_window=(500, 900))
+
+
 def long_read_runs(path, records, outdir, device):
-    """``hpgq_torch.stats`` on ``device`` with ``kmers=True`` and with
-    :data:`LONG_FILTER`, each held against the reference; returns
-    ``{run: (counters, K1 launches, K2 launches, wire tiers, seconds)}``."""
+    """``hpgq_torch.stats`` on ``device`` with ``kmers=True``, with
+    :data:`LONG_FILTER` and with :data:`LONG_WINDOW`, each held against
+    the reference; returns ``{run: (counters, K1 launches, K2 launches,
+    wire tiers, seconds)}``."""
     import torch
 
-    import hpgq_torch
     from hpgq_torch.kernels import step
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     out = {}
-    for run, kw in (("kmers", dict(kmers=True)), ("filter", LONG_FILTER)):
+    for run, kw in (("kmers", dict(kmers=True)), ("filter", LONG_FILTER),
+                    ("window", LONG_WINDOW)):
         reset_counts()
         t0 = time.perf_counter()
-        got = hpgq_torch.stats(path, outdir=outdir, device=device, **kw)
+        got = run_stats_kw(path, outdir, device, **kw)
         if device == "cuda":
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -765,10 +822,10 @@ def long_read_runs(path, records, outdir, device):
                     dict(step.WIRE_BATCHES), secs)
         assert_counters_equal(got, reference_stats(records, **kw),
                               "long reads, " + run)
-        if run == "filter":
+        if run != "kmers":
             check(got.num_passed > 0 and got.num_failed > 0,
-                  "the long-read filter passed %d and failed %d reads"
-                  % (got.num_passed, got.num_failed))
+                  "the long-read %s run passed %d and failed %d reads"
+                  % (run, got.num_passed, got.num_failed))
     return out
 
 
@@ -790,7 +847,7 @@ def phase_long_reads(tmp, smi):
                 run, secs, k2, k1, tiers, got.num_reads, got.num_passed,
                 got.num_failed, ", %d k-mers" % int(got.kmer_counts.sum())
                 if run == "kmers" else ""))
-    say("long", "both runs and their references took %.1f s"
+    say("long", "the three runs and their references took %.1f s"
         % (time.perf_counter() - t0))
     launches = runs["filter"][2]
 
@@ -855,6 +912,42 @@ def paired_runs(m1, recs1, m2, recs2, outdir, device):
     return out
 
 
+def long_pairs(tmp, n=2000, n_huge=8):
+    """Two mate files of long reads (:func:`long_read_corpus`, seeds 51
+    and 61, ``n + n_huge`` records each), cached."""
+    return [cached_corpus(os.path.join(tmp, "long_pairs_%d.fq" % m),
+                          lambda p, s=seed: long_read_corpus(
+                              p, n=n, n_huge=n_huge, seed=s))
+            for m, seed in ((1, 51), (2, 61))]
+
+
+def paired_long_run(pair1, pair2, outdir, device):
+    """Paired ``stats`` of long reads with :data:`LONG_FILTER`, both mates
+    held against ``reference_paired_stats``; returns (counters pair,
+    launches, wire tiers).  On CUDA every mate batch must launch K2."""
+    import hpgq_torch
+    from hpgq_torch.kernels import step
+    from hpgq_torch.oracle import assert_counters_equal, reference_paired_stats
+
+    (m1, recs1), (m2, recs2) = pair1, pair2
+    reset_counts()
+    got = hpgq_torch.stats(m1, m2, outdir=outdir, device=device,
+                           **LONG_FILTER)
+    n, tiers = launch_counts(), dict(step.WIRE_BATCHES)
+    want = reference_paired_stats(recs1, recs2, **LONG_FILTER)
+    for mate, g, w in zip((1, 2), got, want):
+        assert_counters_equal(g, w, "paired long reads, mate %d" % mate)
+    check(got[0].num_passed > 0 and got[0].num_failed > 0,
+          "the paired long-read filter passed %d and failed %d pairs"
+          % (got[0].num_passed, got[0].num_failed))
+    if device == "cuda":
+        check(n["K2"] > 0 and n["K2"] == sum(tiers.values())
+              and n["K1"] + n["K1 2u"] == 0,
+              "paired long reads: every mate batch must launch K2 once "
+              "(launches %s, tiers %s)" % (n, tiers))
+    return got, n, tiers
+
+
 def warm_passes(fn, n, unit, smi, label, phase):
     """Three warm passes of ``fn``, printed as ``unit``/s, best and
     median, then one profiled pass: the card's busy share.  Returns that
@@ -881,9 +974,10 @@ def warm_passes(fn, n, unit, smi, label, phase):
 
 
 def phase_paired(tmp, smi):
-    """Paired stats over 1M pairs of 2 x 100 bp; returns the launches of
-    K1's plain entry (the filtered run: the pair verdict reads both mates
-    decoded) and of its 2u entry (the run with no filter)."""
+    """Paired stats over 1M pairs of 2 x 100 bp, and over 2,008 pairs of
+    long reads; returns the launches of K1's plain entry (the filtered
+    run: the pair verdict reads both mates decoded), of its 2u entry (the
+    run with no filter) and of K2 (the long pairs, both mates)."""
     m1, recs1 = bench_corpus(tmp)
     m2, recs2 = bench_corpus(tmp, seed=8)
     t0 = time.perf_counter()
@@ -901,9 +995,17 @@ def phase_paired(tmp, smi):
                          c1.num_failed))
     say("paired", "both runs and their references took %.1f s"
         % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    (c1, _), n, tiers = paired_long_run(*long_pairs(tmp),
+                                        tempfile.mkdtemp(dir=tmp), "cuda")
+    say("paired", "long reads, NanoFilt-style filter: %.3f s with its "
+        "reference, launches %s, wire tiers %s; both mates == reference "
+        "(%d pairs counted, %d passed, %d failed)"
+        % (time.perf_counter() - t0, n, tiers, c1.num_reads, c1.num_passed,
+           c1.num_failed))
     warm_passes(lambda: run_port_paired(m1, m2, tempfile.mkdtemp(dir=tmp)),
                 len(recs1), "pairs", smi, "bench filter", "paired")
-    return runs["filter"][1]["K1"], runs["all"][1]["K1 2u"]
+    return runs["filter"][1]["K1"], runs["all"][1]["K1 2u"], n["K2"]
 
 
 def run_port_paired(m1, m2, outdir):
@@ -1304,18 +1406,443 @@ def phase_cgr(tmp, smi):
             "copies, %d batches): %.3f ms" % (nbatches, busy[0] / nbatches))
 
 
+# ---------------------------------------------------------------- phase 13
+
+def cached_reference(fn, *recs, **kw):
+    """``fn(*recs, **kw)`` of ``hpgq_torch.oracle``, computed once per run
+    for the same record lists and keywords."""
+    key = (fn.__name__, tuple(id(r) for r in recs),
+           json.dumps(kw, sort_keys=True))
+    if key not in _REFS:
+        _REFS[key] = fn(*recs, **kw)
+    return _REFS[key]
+
+
+_REFS = {}
+
+
+def _argv(kw):
+    """CLI flags of the API's threshold keywords (BENCH_FILTER's)."""
+    return ["--read-length-range", "%d,%d" % kw["read_length_range"],
+            "--read-quality-range", "%d,%d" % kw["read_quality_range"],
+            "--max-N", str(kw["max_N"])]
+
+
+def rank_worker(job_file):
+    """One rank of phase 13, started with torch's launcher variables
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and ``MASTER_ADDR`` and
+    ``MASTER_PORT`` where the job names no ``file://`` rendezvous, whose
+    group the rank then makes itself) and ``--rank-worker JOB``: each run of
+    the job through the port's entry points with ``sharded=True`` (the API
+    for ``stats`` and ``cgr``, the CLI for ``filter`` and ``edit``); prints
+    one ``RESULT {...}`` line per run and dumps counters and tables for the
+    parent to check."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    import hpgq_torch
+    from hpgq_torch.cli.main import main as cli
+    from hpgq_torch.dist import mesh
+    from hpgq_torch.kernels import step
+    from hpgq_torch.utils.checkpoint import save_counters_checkpoint
+
+    with open(job_file) as f:
+        job = json.load(f)
+    device = job["device"]
+    if job["init"]:
+        dist.init_process_group(
+            "gloo", init_method="file://" + job["init"],
+            rank=int(os.environ["RANK"]),
+            world_size=int(os.environ["WORLD_SIZE"]), timeout=mesh.TIMEOUT)
+    pg = mesh.initialize_distributed(device)
+    for run in job["runs"]:
+        out = run["outdir"] if run["kind"] == "cli" else "%s.rank%d" % (
+            run["outdir"], pg.rank)  # one dir per rank: rank 0 alone writes
+        os.makedirs(out, exist_ok=True)
+        dump = os.path.join(job["dump"], "%s.rank%d.npz" % (run["name"],
+                                                            pg.rank))
+        mesh.barrier(pg)
+        reset_counts()
+        t0 = time.perf_counter()
+        if run["kind"] == "stats":
+            got = hpgq_torch.stats(*run["paths"], outdir=out, device=device,
+                                   sharded=True, **run["kw"])
+            c1, c2 = got if isinstance(got, tuple) else (got, None)
+            save_counters_checkpoint(dump, c1, 0, "dump", counters2=c2)
+        elif run["kind"] == "cgr":
+            res = hpgq_torch.cgr(*run["paths"], outdir=out, device=device,
+                                 sharded=True, **run["kw"])
+            np.savez(dump, table_seq=res["table_seq"], table_q=res["table_q"],
+                     words=res["fq_word_count"])
+        else:
+            log = os.path.join(job["dump"], "log.rank%d" % pg.rank)
+            with contextlib.redirect_stdout(sys.stderr):
+                rc = cli(run["argv"] + ["-o", out, "--sharded", "--device",
+                                        device, "--log-file", log])
+            check(rc == 0, "%s: the CLI exited %d" % (run["name"], rc))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        mesh.barrier(pg)
+        print("RESULT " + json.dumps({
+            "name": run["name"], "rank": pg.rank, "world": pg.world_size,
+            "device": str(pg.device), "launches": launch_counts(),
+            "tiers": dict(step.WIRE_BATCHES),
+            "secs": time.perf_counter() - t0}), flush=True)
+    if dist.is_initialized():  # not left to the interpreter's exit
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world, runs, device, tmp, launcher=False, timeout=600):
+    """Run ``runs`` as ``world`` ranks, each a subprocess of this script
+    (jax and ``hpgq`` blocked there too) that makes its group over a
+    ``file://`` rendezvous in its own directory, so that no two runs race
+    for a TCP port; with ``launcher`` (world size 1 only) the rank gets
+    torch's launcher variables instead and joins over ``env://`` (port 0:
+    a group of one binds whatever port is free).  Returns ``{run name:
+    [result of each rank]}`` with the dumps loaded (``counters``,
+    ``tables``)."""
+    import subprocess
+
+    from hpgq_torch.utils.checkpoint import load_counters_checkpoint
+
+    check(world == 1 or not launcher, "env:// with port 0 is for one rank")
+    work = tempfile.mkdtemp(dir=tmp)
+    job = os.path.join(work, "job.json")
+    with open(job, "w") as f:
+        json.dump({"device": device, "dump": work, "runs": runs,
+                   "init": None if launcher else os.path.join(work, "pg")},
+                  f)
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    if launcher:
+        env.update(MASTER_ADDR="localhost", MASTER_PORT="0")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", job],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            check(p.returncode == 0, "rank %d exited %d: %s"
+                  % (len(outs), p.returncode, err[-3000:]))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = {}
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("RESULT "):
+                res = json.loads(line[len("RESULT "):])
+                results.setdefault(res["name"], []).append(res)
+    for name, ranks in results.items():
+        check(len(ranks) == world, "%s: %d of %d ranks reported"
+              % (name, len(ranks), world))
+        for res in ranks:
+            dump = os.path.join(work, "%s.rank%d.npz" % (name, res["rank"]))
+            if not os.path.exists(dump):
+                continue
+            if any(r["name"] == name and r["kind"] == "cgr" for r in runs):
+                with np.load(dump) as z:
+                    res["tables"] = (z["table_seq"], z["table_q"],
+                                     int(z["words"]))
+            else:
+                c1, _, extra = load_counters_checkpoint(dump, "dump")
+                res["counters"] = (c1, extra.get("__counters2__"))
+    return results
+
+
+def check_ranks_stats(ranks, want, label):
+    """Every rank's counters (both mates) equal the reference."""
+    from hpgq_torch.oracle import assert_counters_equal
+
+    want = want if isinstance(want, tuple) else (want, None)
+    for res in ranks:
+        for mate, got, w in zip((1, 2), res["counters"], want):
+            if w is not None:
+                assert_counters_equal(got, w, "%s, rank %d, mate %d"
+                                      % (label, res["rank"], mate))
+
+
+def sharded_ranks(corpora, outdir, device, tmp, world=2):
+    """``world`` ranks on one host (by default two sharing the card; with
+    as many cards, one each), over gloo: sharded ``stats``,
+    paired ``stats``, long-read ``stats``, ``filter``, ``edit`` and
+    ``cgr`` k=7, each held against the reference; then one timed
+    ``stats`` pass.  Returns the results by run."""
+    from hpgq_torch.oracle import (
+        fastq_bytes,
+        reference_paired_stats,
+        reference_stats,
+        reference_verdicts,
+    )
+
+    (m1, recs1), (m2, recs2), (lpath, lrecs) = corpora
+
+    def d(name):
+        return os.path.join(outdir, name)
+
+    runs = [
+        dict(name="stats", kind="stats", paths=[m1], kw=BENCH_FILTER,
+             outdir=d("stats")),
+        dict(name="paired", kind="stats", paths=[m1, m2], kw=BENCH_FILTER,
+             outdir=d("paired")),
+        dict(name="long reads", kind="stats", paths=[lpath], kw=LONG_FILTER,
+             outdir=d("long")),
+        dict(name="filter", kind="cli", outdir=d("filter"),
+             argv=["filter", "-f", m1] + _argv(BENCH_FILTER)),
+        dict(name="edit", kind="cli", outdir=d("edit"),
+             argv=["edit", "-f", m1, "--left-length", "10",
+                   "--left-quality-range", "28,60"]),
+        dict(name="cgr", kind="cgr", paths=[m1],
+             kw=dict(k=7, write_gs=True), outdir=d("cgr")),
+        dict(name="stats, warm", kind="stats", paths=[m1], kw=BENCH_FILTER,
+             outdir=d("warm")),
+    ]
+    res = spawn_ranks(world, runs, device, tmp)
+    for name, ranks in res.items():
+        check({r["world"] for r in ranks} == {world},
+              "%s: ranks saw world sizes %s, not %d"
+              % (name, [r["world"] for r in ranks], world))
+    check_ranks_stats(res["stats"], cached_reference(
+        reference_stats, recs1, **BENCH_FILTER), "sharded stats")
+    check_ranks_stats(res["paired"], cached_reference(
+        reference_paired_stats, recs1, recs2, **BENCH_FILTER),
+        "sharded paired stats")
+    check_ranks_stats(res["long reads"], cached_reference(
+        reference_stats, lrecs, **LONG_FILTER), "sharded long reads")
+    for name in ("stats", "paired", "long reads", "cgr"):
+        run = next(r for r in runs if r["name"] == name)
+        for rank in range(1, world):
+            check(os.listdir("%s.rank%d" % (run["outdir"], rank)) == [],
+                  "sharded %s: rank %d wrote files" % (name, rank))
+    if device == "cuda":
+        for name, kernel in (("stats", "K1 2u"), ("paired", "K1"),
+                             ("long reads", "K2")):
+            check(all(r["launches"][kernel] > 0 for r in res[name]),
+                  "sharded %s: a rank launched %s no time (%s)"
+                  % (name, kernel, [r["launches"] for r in res[name]]))
+    check(os.path.exists(os.path.join(d("stats") + ".rank0",
+                                      os.path.basename(m1)
+                                      + ".summary.txt")),
+          "sharded stats: rank 0 wrote no report")
+    ok = cached_reference(reference_verdicts, recs1, **BENCH_FILTER)
+    check(sorted(os.listdir(d("filter"))) == ["failed.fq", "passed.fq"],
+          "sharded filter wrote %s" % sorted(os.listdir(d("filter"))))
+    for name, sel in (("passed.fq", ok), ("failed.fq", ~ok)):
+        with open(os.path.join(d("filter"), name), "rb") as f:
+            check(f.read() == fastq_bytes(recs1, sel),
+                  "sharded filter: %s differs from the reference's "
+                  "selection" % name)
+    files, _, _, _ = edit_expect("edit", (m1,), (recs1,), EDIT_TRIM)
+    check(sorted(os.listdir(d("edit"))) == sorted(files),
+          "sharded edit wrote %s" % sorted(os.listdir(d("edit"))))
+    for name, want in files.items():
+        with open(os.path.join(d("edit"), name), "rb") as f:
+            check(f.read() == want, "sharded edit: %s differs from the "
+                  "reference" % name)
+    base = os.path.join(d("cgr") + ".rank0", os.path.basename(m1) + "_k=7")
+    for r in res["cgr"]:
+        ts, tq, words = r["tables"]
+        cgr_check({"table_seq": ts, "table_q": tq, "fq_word_count": words,
+                   "pgm_files": [base + "_FG.pgm"],
+                   "gs_file": base + ".gs"}, (recs1,), 7, tmp,
+                  "sharded cgr, rank %d" % r["rank"])
+    return res
+
+
+def sharded_world1(m1, recs1, outdir, device, tmp):
+    """World size 1: in this process with no launcher (no group), and in
+    one subprocess with the launcher's variables (a gloo group of one over
+    ``env://``); ``stats`` with the bench filter, each equal to the
+    reference.  Returns (counters, launches, the subprocess's result)."""
+    import hpgq_torch
+    from hpgq_torch.oracle import assert_counters_equal, reference_stats
+
+    want = cached_reference(reference_stats, recs1, **BENCH_FILTER)
+    reset_counts()
+    got = hpgq_torch.stats(m1, outdir=outdir, device=device, sharded=True,
+                           **BENCH_FILTER)
+    launches = launch_counts()
+    assert_counters_equal(got, want, "sharded stats, world size 1")
+    (res,) = spawn_ranks(1, [dict(name="stats", kind="stats", paths=[m1],
+                                  kw=BENCH_FILTER,
+                                  outdir=outdir + ".launched")],
+                         device, tmp, launcher=True)["stats"]
+    check(res["world"] == 1, "world size 1 with the launcher: the rank saw "
+          "world size %d" % res["world"])
+    check_ranks_stats([res], want, "sharded stats, launched, world size 1")
+    return got, launches, res
+
+
+def legacy_qc_filter(m1, recs1, outdir, device):
+    """``python -m hpgq_torch --qc --filter`` with the legacy spellings of
+    the bench filter: ``<input>.valid`` and ``.invalid`` equal the
+    reference's selection, and the two summaries equal the reports of
+    ``reference_stats`` over the selected and the rejected records."""
+    import subprocess
+
+    from hpgq_torch.core.counters import StatsCounters
+    from hpgq_torch.oracle import (
+        COUNTER_ARRAYS,
+        COUNTER_KEYS,
+        fastq_bytes,
+        reference_stats,
+        reference_verdicts,
+    )
+    from hpgq_torch.report.stats_report import stats_report
+    from hpgq_torch.options import StatsOptions
+
+    os.makedirs(outdir, exist_ok=True)
+    lo, hi = BENCH_FILTER["read_length_range"]
+    qlo, qhi = BENCH_FILTER["read_quality_range"]
+    argv = ["--qc", "--filter", "--fq", m1, "--outdir", outdir,
+            "--min-read-length", str(lo), "--max-read-length", str(hi),
+            "--min-quality", str(qlo), "--max-quality", str(qhi),
+            "--max-n-per-read", str(BENCH_FILTER["max_N"]),
+            "--log-file", os.path.join(outdir, "log"), "--device", device]
+    run = ("import runpy, sys\n"
+           "for n in %r:\n    sys.modules[n] = None\n"
+           "sys.argv = ['hpgq_torch'] + %r\n"
+           "runpy.run_module('hpgq_torch', run_name='__main__')\n"
+           % (BLOCKED, argv))
+    p = subprocess.run([sys.executable, "-c", run], capture_output=True,
+                       text=True, cwd=REPO, timeout=600)
+    check(p.returncode == 0, "legacy --qc --filter exited %d: %s"
+          % (p.returncode, p.stderr[-3000:]))
+    ok = cached_reference(reference_verdicts, recs1, **BENCH_FILTER)
+    name = os.path.basename(m1)
+    for suffix, sel in ((".valid", ok), (".invalid", ~ok)):
+        with open(os.path.join(outdir, name + suffix), "rb") as f:
+            check(f.read() == fastq_bytes(recs1, sel), "legacy --qc "
+                  "--filter: %s%s differs from the reference's selection"
+                  % (name, suffix))
+        ref = reference_stats([r for r, s in zip(recs1, sel) if s])
+        c = StatsCounters(phred=33)
+        for k in COUNTER_KEYS + ("acc_quality",):
+            setattr(c, k, getattr(ref, k))
+        for k in COUNTER_ARRAYS:
+            setattr(c, k, getattr(ref, k))
+        want_dir = tempfile.mkdtemp(dir=outdir)
+        stats_report(c, StatsOptions(in_filename=name + suffix,
+                                     out_dirname=want_dir))
+        summary = name + suffix + ".summary.txt"
+        with open(os.path.join(outdir, summary), "rb") as f:
+            got = f.read().replace(outdir.encode(), b"<OUT>")
+        with open(os.path.join(want_dir, summary), "rb") as f:
+            want = f.read().replace(want_dir.encode(), b"<OUT>")
+        same_report(got, want, summary)
+    return int(ok.sum()), int((~ok).sum())
+
+
+def same_report(got, want, label):
+    """Byte equality, except that the ``Mean quality`` line (the f32
+    ``acc_quality`` sum, whose order differs) may differ by 1e-3
+    relative."""
+    lg, lw = got.split(b"\n"), want.split(b"\n")
+    check(len(lg) == len(lw), "%s: %d lines, the reference %d"
+          % (label, len(lg), len(lw)))
+    for a, b in zip(lg, lw):
+        if a != b:
+            check(a.startswith(b"Mean quality = ")
+                  and b.startswith(b"Mean quality = "),
+                  "%s: %r, the reference %r" % (label, a, b))
+            qa, qb = (int(x.split(b"=")[1].split()[0]) for x in (a, b))
+            check(abs(qa - qb) <= 1e-3 * max(abs(qb), 1),
+                  "%s: %r, the reference %r" % (label, a, b))
+
+
+def phase_sharded(tmp, smi, ranks=2):
+    """Phase 13: ``--sharded`` at world size 1 (no launcher, then the
+    launcher's variables), ``ranks`` ranks (two sharing the card), the
+    legacy ``--qc
+    --filter`` run, and the rates of one warm pass at world size 1 and at
+    ``ranks``.  Returns the launches of K1's plain and 2u entries and of
+    K2 on these paths."""
+    import torch
+
+    import hpgq_torch
+
+    m1, recs1 = bench_corpus(tmp)
+    corpora = (bench_corpus(tmp), bench_corpus(tmp, seed=8), long_corpus(tmp))
+    t0 = time.perf_counter()
+    got, n1, res = sharded_world1(m1, recs1, tempfile.mkdtemp(dir=tmp),
+                                  "cuda", tmp)
+    check(n1["K1 2u"] > 0 and res["launches"]["K1 2u"] > 0,
+          "sharded stats at world size 1 launched K1's 2u entry no time "
+          "(%s, launched %s)" % (n1, res["launches"]))
+    say("sharded", "world size 1, no launcher (no group): launches %s; "
+        "launched (RANK=0 WORLD_SIZE=1, env://): %s, launches %s; "
+        "both == reference (%d passed) in %.1f s"
+        % (n1, res["device"], res["launches"],
+           got.num_passed, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    n_pass, n_fail = legacy_qc_filter(m1, recs1, tempfile.mkdtemp(dir=tmp),
+                                      "cuda")
+    say("sharded", "python -m hpgq_torch --qc --filter: .valid (%d) and "
+        ".invalid (%d) == reference selection, both summaries == the "
+        "reference's reports, in %.1f s" % (n_pass, n_fail,
+                                           time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    res2 = sharded_ranks(corpora, tempfile.mkdtemp(dir=tmp), "cuda", tmp,
+                         ranks)
+    for name, by_rank in res2.items():
+        say("sharded", "world size %d, %s: gloo, devices %s, "
+            "launches by rank %s, %.3f s; == reference" % (
+                ranks, name, [r["device"] for r in by_rank],
+                [r["launches"] for r in by_rank],
+                max(r["secs"] for r in by_rank)))
+    say("sharded", "world size %d: seven runs and their checks in %.1f s"
+        % (ranks, time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    hpgq_torch.stats(m1, outdir=tempfile.mkdtemp(dir=tmp), device="cuda",
+                     sharded=True, **BENCH_FILTER)
+    torch.cuda.synchronize()
+    w1 = time.perf_counter() - t0
+    w2 = max(r["secs"] for r in res2["stats, warm"])
+    say("sharded", "sharded stats + bench filter, one warm pass: world size "
+        "1 %.0f reads/s (%.3f s), world size %d on %d card(s) %.0f reads/s "
+        "(%.3f s), on %s" % (len(recs1) / w1, w1, ranks,
+                             torch.cuda.device_count(), len(recs1) / w2, w2,
+                             smi))
+
+    def total(kernel, *names):
+        return sum(r["launches"][kernel] for n in names for r in res2[n])
+
+    return (total("K1", "paired"),
+            n1["K1 2u"] + res["launches"]["K1 2u"] + total("K1 2u", "stats"),
+            total("K2", "long reads"))
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default 1-5 and "
-                         "7-12; 6, the stage breakdown, runs only when "
+                         "7-13; 6, the stage breakdown, runs only when "
                          "asked for; the card and the build always run)")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="ranks of phase 13's multi-rank runs (default 2, "
+                         "sharing the card; as many as the cards for one "
+                         "card each)")
+    ap.add_argument("--rank-worker", metavar="JOB", default=None,
+                    help=argparse.SUPPRESS)  # one rank of phase 13
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     for name in BLOCKED:  # any import of jax or hpgq now fails the run
         sys.modules[name] = None
+    if args.rank_worker:
+        sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+        os.environ["HPGQ_CHARTS"] = "off"
+        rank_worker(args.rank_worker)
+        return 0
 
     import torch
 
@@ -1381,9 +1908,10 @@ def main(argv=None):
         if 8 in phases:
             k2["launches"] += phase_long_reads(tmp, smi)
         if 9 in phases:
-            n_plain, n_2u = phase_paired(tmp, smi)
+            n_plain, n_2u, n_k2 = phase_paired(tmp, smi)
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
+            k2["launches"] += n_k2
         if 10 in phases:
             phase_filter(tmp, smi, se_passed)
         if 11 in phases:
@@ -1392,6 +1920,11 @@ def main(argv=None):
             k2["launches"] += n_k2
         if 12 in phases:
             phase_cgr(tmp, smi)
+        if 13 in phases:
+            n_plain, n_2u, n_k2 = phase_sharded(tmp, smi, args.ranks)
+            k1["launches"] += n_plain
+            k1u["launches"] += n_2u
+            k2["launches"] += n_k2
         if 6 in phases:
             phase_breakdown(tmp, smi)
     finally:

@@ -30,6 +30,7 @@ from .options import (
     PreproOptions,
     StatsOptions,
 )
+from .dist.run_dist import run_stats_sharded
 from .pipeline.cgr_run import run_cgr
 from .pipeline.run import run_edit, run_filter, run_stats
 
@@ -101,13 +102,17 @@ def stats(in_path, in_path2=None, outdir=".", *, kmers: bool = False,
           sharded: bool = False, report: bool = True, device="cuda"):
     """QC statistics (the `stats` command) on ``device``.  Returns
     :class:`~hpgq_torch.core.counters.StatsCounters` (a pair when paired-end).
-    Passing any threshold enables the inline pre-filter."""
+    Passing any threshold enables the inline pre-filter.  ``sharded`` runs
+    this process as one rank of a ``torch.distributed`` run
+    (:mod:`hpgq_torch.dist`), or alone when no launcher set one up."""
     dev = resolve_device(device)
     opts = _common(StatsOptions(), in_path, in_path2, outdir, encoding,
                    batch_size, checkpoint, sharded)
     opts.kmers_on = bool(kmers)
     opts.filter_on = _criteria(opts, read_length_range, read_quality_range,
                                max_N, max_out_of_quality, left, right)
+    if sharded:  # single-end and paired alike
+        return run_stats_sharded(opts, report=report, device=dev)
     return run_stats(opts, report=report, device=dev)
 
 
@@ -189,7 +194,7 @@ def cgr(in_path, in_path2=None, outdir=".", *, k: int = DEFAULT_CGR_K,
         device="cuda"):
     """Chaos-game genomic signature (the `cgr` command) on ``device``.
     Returns the result dict (tables, word count, PGM paths, diff stats
-    when ``gs_filename``)."""
+    when ``gs_filename``); ``sharded`` as in :func:`stats`."""
     dev = resolve_device(device)
     opts = _common(CgrOptions(), in_path, in_path2, outdir, encoding,
                    batch_size, checkpoint, sharded)

@@ -5,15 +5,18 @@ Every command takes ``hpgq``'s flags (the parser helpers below are copies
 of ``hpgq/cli/main.py``'s, so the PARAMETERS and RESULTS blocks, the
 report files, the FASTQ outputs and the PGM and ``.gs`` files come out
 byte-for-byte as ``hpgq`` writes them) plus ``--device`` (default
-``cuda``).  The legacy single-binary flags (``--qc``, ``--filter``,
-``--prep``, ``--cg`` and their spellings) are not ported yet and exit
-non-zero.
+``cuda``).  The legacy single-binary invocations (``--qc``, ``--filter``,
+``--prep``, ``--cg`` and their spellings, and the combined ``--qc --cg``
+and ``--qc --filter`` runs) dispatch to the commands as ``hpgq``'s do.
+``--sharded`` runs a command as one rank of a ``torch.distributed`` run
+(:mod:`hpgq_torch.dist`).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 from .. import __version__
@@ -29,12 +32,9 @@ from ..options import (
 )
 from ..utils.timers import StageTimers
 
-# legacy single-binary action flags (hpgq/cli/main.py:409-412), not ported
-_LEGACY_ACTIONS = ("--qc", "--quality-control", "--filter", "--prep",
-                   "--preprocessing", "--cg", "--chaos-game")
-
-# The parser helpers from here to _results_banner are copies of
-# hpgq/cli/main.py:40-42 and :63-391.
+# The parser helpers from here to _results_banner, and the legacy
+# dispatch from _LEGACY_ACTIONS to _legacy_filter_names, are copies of
+# hpgq/cli/main.py:40-42, :63-391 and :405-579.
 
 _LOG_LEVELS = {1: logging.DEBUG, 2: logging.INFO, 3: logging.WARNING,
                4: logging.ERROR, 5: logging.CRITICAL}
@@ -91,8 +91,9 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
                    help="Verbose console logging (legacy --v, "
                         "old/main_hpg_fastq_old.c:158)")
     # legacy GPU geometry knobs (old/main_hpg_fastq_old.c:159-161):
-    # accepted for drop-in command-line parity, meaningless on a TPU mesh
-    # (scale-out is --sharded); a non-default value logs a warning
+    # accepted for drop-in command-line parity, with no effect here (the
+    # CUDA kernels pick their own grids; scale-out is --sharded); a value
+    # logs a warning
     p.add_argument("--gpu-num-blocks", type=int, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--gpu-num-threads", type=int, default=None,
@@ -122,13 +123,19 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="Batches between checkpoints (0 = off)")
     p.add_argument("--profile-dir", default=None,
-                   help="Write a jax.profiler trace to this directory")
+                   help="Not ported to hpgq_torch yet (ROADMAP item 16): "
+                        "the run stops with an error")
     p.add_argument("--sharded", action="store_true",
-                   help="Data-parallel over all devices (multi-chip/"
-                        "multi-host mesh; every command, single- and "
-                        "paired-end)")
+                   help="Run as one process of a torch.distributed run, one "
+                        "process per card (launch with torchrun, or set "
+                        "RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT): "
+                        "each process reads its own part of the input and "
+                        "rank 0 writes the outputs; every command, single- "
+                        "and paired-end")
     p.add_argument("--no-pallas", dest="use_pallas", action="store_false",
-                   help="Disable Pallas kernels (use the XLA-fused jnp path)")
+                   help="No effect in hpgq_torch (accepted for hpgq's "
+                        "command lines): CUDA runs the K1/K2 kernels, the "
+                        "CPU their plain twin")
 
 
 def _parse_conf(path: str) -> dict:
@@ -303,7 +310,7 @@ def _ns_to_opts(ns: argparse.Namespace, cls):
     for knob in ("gpu_num_blocks", "gpu_num_threads", "gpu_num_devices"):
         if getattr(ns, knob, None) is not None:
             logging.getLogger("hpgq").warning(
-                "--%s has no effect on a TPU mesh (scale-out is --sharded)",
+                "--%s has no effect in hpgq_torch (scale-out is --sharded)",
                 knob.replace("_", "-"),
             )
     return opts
@@ -385,9 +392,11 @@ def usage(exec_name: str) -> str:
         "         prepro\tlegacy preprocessing (trims, <input>.valid)\n"
         "         cgr\t\tchaos-game genomic signature\n"
         "\n"
-        "Every command takes --device cuda (default) or --device cpu.\n"
-        "Not ported yet (use hpgq): the legacy single-binary flags %s\n"
-        % (exec_name, __version__, exec_name, ", ".join(_LEGACY_ACTIONS))
+        "Every command takes --device cuda (default) or --device cpu, and\n"
+        "--sharded for one process per card over torch.distributed.\n"
+        "The legacy single-binary flags (--qc, --filter, --prep, --cg) run\n"
+        "as in hpgq.\n"
+        % (exec_name, __version__, exec_name)
     )
 
 
@@ -396,11 +405,188 @@ def main(argv=None) -> int:
 
     from ..device import DeviceUnavailable
 
+    from ..dist.mesh import leave_group
+
     try:
         return _main(argv)
     except (FastqParseError, DeviceUnavailable, NotImplementedError) as e:
         print("Error: %s" % e, file=sys.stderr)
         return -1
+    finally:
+        leave_group()
+
+
+# legacy single-binary action flags (old/main_hpg_fastq_old.c:131-192) →
+# subcommands.  --qc together with --cg/--chaos-game runs both (the legacy
+# note: "Chaos Game ... must be launched together with Quality Control",
+# old/README:177).
+_LEGACY_ACTIONS = {"--qc": "stats", "--quality-control": "stats",
+                   "--filter": "filter", "--prep": "prepro",
+                   "--preprocessing": "prepro", "--cg": "cgr",
+                   "--chaos-game": "cgr"}
+_VALUE_FLAGS = {"--k", "--gs-filename"}  # cgr-only flags that take a value
+# every filter-criteria flag (modern + legacy), all value-taking — stripped
+# from the stats legs of the legacy --qc --filter combined run so the
+# per-output stats don't re-filter
+_CRITERIA_FLAGS = {
+    "--read-length-range", "--read-quality-range", "--left-length",
+    "--left-quality-range", "--right-length", "--right-quality-range",
+    "--max-N", "--max-out-of-quality", "--min-read-length",
+    "--max-read-length", "--max-n-per-read", "--max-nts-mismatch",
+    "--lfilter-nts", "--rfilter-nts", "--min-quality", "--max-quality",
+}
+
+
+def _strip_flags(args, drop_flags, drop_value_flags=()):
+    out, skip = [], False
+    for a in args:
+        if skip:
+            skip = False
+            continue
+        if a in drop_value_flags:
+            skip = True
+            continue
+        if a in drop_flags:
+            continue
+        out.append(a)
+    return out
+
+
+def _legacy_main(argv, exec_name: str) -> int:
+    """Dispatch a legacy-style invocation (action flags, no subcommand):
+    ``hpg-fastq --filter --fq in.fq --outdir out ...``."""
+    # normalize the argparse-legal '--flag=value' form into two tokens so
+    # the action/criteria/outdir/batch-size argv scans below see every
+    # spelling (argparse downstream accepts both forms either way)
+    norm = []
+    for a in argv:
+        if a.startswith("--") and "=" in a:
+            flag, val = a.split("=", 1)
+            norm += [flag, val]
+        else:
+            norm.append(a)
+    argv = norm
+    kinds = []
+    for a in argv:
+        k = _LEGACY_ACTIONS.get(a)
+        if k and k not in kinds:
+            kinds.append(k)
+    rest = [a for a in argv if a not in _LEGACY_ACTIONS]
+    # legacy --batch-size is in BYTES (default 64 MB, old/README:56); the
+    # modern flag counts reads.  In legacy dispatch, large values are
+    # clearly bytes — convert at ~250 B per short record.
+    for i, a in enumerate(rest):
+        if a == "--batch-size" and i + 1 < len(rest):
+            try:
+                v = int(rest[i + 1])
+            except ValueError:
+                break
+            if v > 1_000_000:
+                rest[i + 1] = str(max(10000, v // 250))
+                logging.getLogger("hpgq").info(
+                    "legacy --batch-size %d bytes -> %s reads", v, rest[i + 1]
+                )
+    if sorted(kinds) == ["cgr", "stats"]:
+        rc = _dispatch("stats", _strip_flags(rest, ("--write-gs",),
+                                             _VALUE_FLAGS), exec_name)
+        if rc != 0:
+            return rc
+        return _dispatch("cgr", _strip_flags(rest, ("--kmers",)), exec_name)
+    if sorted(kinds) == ["filter", "stats"]:
+        # legacy combined run: "quality control statistics are provided
+        # both over the .valid and .invalid file" (old/README:144) —
+        # filter first, then stats over each output set
+        rc = _dispatch("filter", _strip_flags(rest, ("--kmers",)), exec_name,
+                       legacy=True)
+        if rc != 0:
+            return rc
+        outdir = "."
+        conf_path = None
+        for i, a in enumerate(rest):
+            if a in ("-o", "--outdir") and i + 1 < len(rest):
+                outdir = rest[i + 1]
+            elif a == "--conf" and i + 1 < len(rest):
+                conf_path = rest[i + 1]
+        if conf_path:
+            try:
+                cf = _parse_conf(conf_path)
+            except OSError:
+                cf = {}
+            if isinstance(cf.get("outdir"), str):
+                outdir = cf["outdir"]  # file overrides CLI
+        names = _legacy_filter_names(_argv_inputs(rest))
+        # the stats legs run over the filter outputs: strip the inputs,
+        # every criteria flag, AND the conf file — its input/criteria keys
+        # would override the legs' argv right back (file-overrides-CLI)
+        base = _strip_flags(
+            rest, (),
+            _CRITERIA_FLAGS | {"-f", "--fastq-file", "--fq", "--fastq",
+                               "--fq1", "--fastq1", "--fq2", "--fastq2",
+                               "--conf"},
+        )
+        # (valid set, invalid set): names order is (p1, p2, f1, f2) paired
+        # or (p, f) single
+        h = len(names) // 2
+        for group in (names[:h], names[h:]):
+            paths = [os.path.join(outdir, n) for n in group]
+            in_flags = (["-f", paths[0]] if len(paths) == 1
+                        else ["--fq1", paths[0], "--fq2", paths[1]])
+            rc = _dispatch("stats", base + in_flags, exec_name)
+            if rc != 0:
+                return rc
+        return 0
+    if len(kinds) != 1:
+        print(usage(exec_name), end="")
+        print("Error: legacy action flags %s are not supported together; "
+              "run the subcommands separately (see MIGRATION.md)"
+              % (kinds or "(none)"), file=sys.stderr)
+        return -1
+    if kinds[0] == "cgr":
+        rest = _strip_flags(rest, ("--kmers",))
+    return _dispatch(kinds[0], rest, exec_name, legacy=True)
+
+
+def _argv_inputs(argv) -> tuple:
+    """(in1, in2) input paths scanned from a (normalized) legacy argv,
+    honoring a ``--conf`` file's input keys (file overrides command line,
+    old/README:63-64) so the combined --qc --filter run derives the same
+    .valid/.invalid names the filter dispatch actually wrote."""
+    in1 = in2 = None
+    conf_path = None
+    for i, a in enumerate(argv):
+        if i + 1 >= len(argv):
+            break
+        if a in ("-f", "--fastq-file", "--fq", "--fastq", "--fq1", "--fastq1"):
+            in1 = argv[i + 1]
+        elif a in ("--fq2", "--fastq2"):
+            in2 = argv[i + 1]
+        elif a == "--conf":
+            conf_path = argv[i + 1]
+    if conf_path:
+        try:
+            conf = _parse_conf(conf_path)
+        except OSError:
+            conf = {}
+        for key in ("fastq-file", "fq", "fastq", "fq1"):
+            if isinstance(conf.get(key), str):
+                in1 = conf[key]
+        if isinstance(conf.get("fq2"), str):
+            in2 = conf["fq2"]
+    return in1, in2
+
+
+def _legacy_filter_names(inputs) -> tuple:
+    """Legacy ``--filter`` output names — ``<input>.valid``/``.invalid``
+    per input file (old/README:126-131).  Returns (p, f) single-end or
+    (p1, p2, f1, f2) paired, matching ``FilterOptions.out_names``."""
+    in1, in2 = inputs
+    b1 = os.path.basename(in1 or "in.fq")
+    if in2 is None:
+        return (b1 + ".valid", b1 + ".invalid")
+    b2 = os.path.basename(in2)
+    if b1 == b2:  # same basename from different dirs
+        b1, b2 = b1 + "_1", b2 + "_2"
+    return (b1 + ".valid", b2 + ".valid", b1 + ".invalid", b2 + ".invalid")
 
 
 def _main(argv=None) -> int:
@@ -410,18 +596,20 @@ def _main(argv=None) -> int:
         print(usage(exec_name), end="")
         return -1
     if argv[0].startswith("-") and any(a in _LEGACY_ACTIONS for a in argv):
-        print("%s: the legacy single-binary flags (%s) are not ported yet "
-              "(ROADMAP.md queue 1 item 17); use the subcommands or hpgq"
-              % (exec_name, ", ".join(a for a in argv
-                                      if a in _LEGACY_ACTIONS)),
-              file=sys.stderr)
-        return -1
+        return _legacy_main(argv, exec_name)
+    return _dispatch(argv[0], argv[1:], exec_name)
+
+
+def _dispatch(command: str, rest, exec_name: str, legacy: bool = False) -> int:
+    """Run one command; ``legacy`` (a single-binary invocation) gives
+    `filter` the ``<input>.valid``/``.invalid`` names
+    (``hpgq/cli/main.py:596-641``)."""
     commands = {"stats": _stats, "filter": _filter, "edit": _edit,
                 "prepro": _prepro, "cgr": _cgr}
-    if argv[0] not in commands:
+    if command not in commands:
         print(usage(exec_name), end="")
         return -1
-    return commands[argv[0]](argv[1:], exec_name)
+    return commands[command](rest, exec_name, legacy)
 
 
 def _add_command_args(parser, command: str) -> None:
@@ -476,7 +664,8 @@ def _command_opts(command: str, ns, opts) -> None:
         opts.write_gs = ns.write_gs
 
 
-def _parse(command: str, rest, exec_name: str, options_cls):
+def _parse(command: str, rest, exec_name: str, options_cls,
+           legacy: bool = False):
     """Parse and validate a command's flags as ``hpgq`` does, print the
     PARAMETERS block; returns (options, device).  The device is resolved
     before anything is printed: no fallback."""
@@ -491,17 +680,24 @@ def _parse(command: str, rest, exec_name: str, options_cls):
     device = resolve_device(ns.device)
     opts = _ns_to_opts(ns, options_cls)
     _command_opts(command, ns, opts)
+    if legacy and command == "filter":
+        # legacy single-binary --filter wrote <input>.valid/.invalid per
+        # input file (old/README:126-131)
+        opts.out_names = _legacy_filter_names(
+            (opts.in_filename, opts.in_filename2))
     validate_common(opts)
     display(opts)
     return opts, device
 
 
-def _stats(rest, exec_name: str) -> int:
+def _stats(rest, exec_name: str, legacy: bool = False) -> int:
+    from ..dist.run_dist import run_stats_sharded
     from ..pipeline.run import run_stats
 
     opts, device = _parse("stats", rest, exec_name, StatsOptions)
     timers = StageTimers()
-    result = run_stats(opts, timers, device=device)
+    result = (run_stats_sharded if opts.sharded else run_stats)(
+        opts, timers, device=device)
     counters = result[0] if isinstance(result, tuple) else result
     lines = ["Report files and images were stored in '%s' directory"
              % opts.out_dirname]
@@ -519,12 +715,14 @@ def _stats(rest, exec_name: str) -> int:
     return _done(lines, opts, timers)
 
 
-def _filter(rest, exec_name: str) -> int:
+def _filter(rest, exec_name: str, legacy: bool = False) -> int:
+    from ..dist.run_dist import run_filter_sharded
     from ..pipeline.run import run_filter
 
-    opts, device = _parse("filter", rest, exec_name, FilterOptions)
+    opts, device = _parse("filter", rest, exec_name, FilterOptions, legacy)
     timers = StageTimers()
-    res = run_filter(opts, timers, device=device)
+    res = (run_filter_sharded if opts.sharded else run_filter)(
+        opts, timers, device=device)
     if opts.paired_end:
         lines = [
             "Num. passed pairs: %d (%s, %s)"
@@ -542,12 +740,14 @@ def _filter(rest, exec_name: str) -> int:
     return _done(lines, opts, timers)
 
 
-def _edit(rest, exec_name: str) -> int:
+def _edit(rest, exec_name: str, legacy: bool = False) -> int:
+    from ..dist.run_dist import run_edit_sharded
     from ..pipeline.run import run_edit
 
     opts, device = _parse("edit", rest, exec_name, EditOptions)
     timers = StageTimers()
-    res = run_edit(opts, timers, device=device)
+    res = (run_edit_sharded if opts.sharded else run_edit)(
+        opts, timers, device=device)
     lines = ["Num. edited reads : %d" % res["num_edited"]]
     if opts.paired_end:
         lines.append("Output files      : %s, %s"
@@ -571,12 +771,14 @@ def _edit(rest, exec_name: str) -> int:
     return _done(lines, opts, timers)
 
 
-def _prepro(rest, exec_name: str) -> int:
+def _prepro(rest, exec_name: str, legacy: bool = False) -> int:
+    from ..dist.run_dist import run_edit_sharded
     from ..pipeline.run import run_edit
 
     opts, device = _parse("prepro", rest, exec_name, PreproOptions)
     timers = StageTimers()
-    res = run_edit(opts, timers, device=device)
+    res = (run_edit_sharded if opts.sharded else run_edit)(
+        opts, timers, device=device)
     lines = ["Num. preprocessed reads : %d" % res["num_edited"]]
     if opts.paired_end:
         lines.append("Output files            : %s, %s"
@@ -592,8 +794,8 @@ def _prepro(rest, exec_name: str) -> int:
     return _done(lines, opts, timers)
 
 
-def _cgr(rest, exec_name: str) -> int:
-    from ..pipeline.cgr_run import run_cgr
+def _cgr(rest, exec_name: str, legacy: bool = False) -> int:
+    from ..pipeline.cgr_run import run_cgr  # routes --sharded itself
 
     opts, device = _parse("cgr", rest, exec_name, CgrOptions)
     timers = StageTimers()

@@ -114,9 +114,7 @@ class DeviceAccumulator:
         self.device = torch.device(device)
         self._crit = crit
         self.kmers_on = kmers_on
-        self.counters = StatsCounters(phred=phred, kmers_on=kmers_on)
-        self.counters.filter_on = crit is not None
-        self.counters.ensure_length(lcap)
+        self.counters = self._zero_counters()
         self.wire = resolve_wire(wire, self.device)
         self._step = make_stats_step(lcap, phred, crit, wire=self.wire,
                                      kmers_on=kmers_on)
@@ -154,3 +152,16 @@ class DeviceAccumulator:
     def finish(self) -> StatsCounters:
         self.flush()
         return self.counters
+
+    def take(self) -> StatsCounters:
+        """The counters of every batch fed since the start or the last
+        take; the accumulator then starts again from zero."""
+        done = self.finish()
+        self.counters = self._zero_counters()
+        return done
+
+    def _zero_counters(self) -> StatsCounters:
+        c = StatsCounters(phred=self.phred, kmers_on=self.kmers_on)
+        c.filter_on = self._crit is not None
+        c.ensure_length(self.lcap)
+        return c

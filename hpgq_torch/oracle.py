@@ -8,9 +8,9 @@ returns, not the FASTQ file, so neither the shared reader nor the packer
 is on its path, and it imports nothing of ``hpgq`` or of the port.  The
 semantics are those of ``hpgq/oracle/baseline.py`` (``block_stats``,
 ``block_verdicts``, ``block_trims`` and ``kmer_window_codes``; decision
-tags [D1]-[D5] of ``hpgq/oracle/spec.py``), without the legacy quality
-position window, and of ``hpgq/oracle/cgr.py`` with any byte other than
-A, C, G or T breaking a word ([D7]).
+tags [D1]-[D5] and the legacy quality position window [D8] of
+``hpgq/oracle/spec.py``), and of ``hpgq/oracle/cgr.py`` with any byte
+other than A, C, G or T breaking a word ([D7]).
 
     want = reference_stats(records, read_quality_range=(20, 60), max_N=2)
     assert_counters_equal(got, want, "label")
@@ -36,6 +36,7 @@ MIN_VALUE, MAX_VALUE = 0, 100000  # threshold defaults, hpgq/constants.py
 QUAL_BINS, GC_BINS = 256, 101     # hpgq/core/counters.py
 BASE_C, BASE_G, BASE_N = 1, 2, 4
 KMER_K, NUM_KMERS = 5, 1024       # hpgq/constants.py
+QUALITY_WINDOW_OFF = (0, 1024)    # FilterCriteria's default [D8] window
 CHUNK_ELEMS = 1 << 26             # padded bases per chunk (rows x width)
 
 _LUT = np.full(256, 5, dtype=np.int8)  # A C G T N, either case; other 5
@@ -112,16 +113,24 @@ def _padded(records, phred):
 
 
 def _verdicts(codes, quals, lens, mask, phred, thr):
-    """``block_verdicts`` (hpgq/oracle/baseline.py:117-167) without the
-    quality position window."""
+    """``block_verdicts`` (hpgq/oracle/baseline.py:117-167).  [D8]: with a
+    quality position window ``[begin, end)`` other than the default
+    ``(0, 1024)``, the mean-quality and out-of-quality screens read only the
+    window's positions inside the read (an empty one passes them)."""
     (min_len, max_len), (min_q, max_q) = thr["length"], thr["quality"]
-    qsum = quals.sum(axis=1)
     ok = (lens >= min_len) & (lens <= max_len)
-    qn = qsum - phred * lens
-    ok &= (min_q * lens <= qn) & (qn <= max_q * lens)
+    qmask, wlen, wqsum = mask, lens, quals.sum(axis=1)
+    if thr["window"] != QUALITY_WINDOW_OFF:
+        begin, end = thr["window"]
+        pos = np.arange(quals.shape[1], dtype=np.int64)[None, :]
+        qmask = mask & (pos >= begin) & (pos < end)
+        wlen = qmask.sum(axis=1)
+        wqsum = np.where(qmask, quals, 0).sum(axis=1)
+    qn = wqsum - phred * wlen
+    ok &= (min_q * wlen <= qn) & (qn <= max_q * wlen)
     if thr["max_oq"] != MAX_VALUE:
         nq = quals - phred
-        out = (((nq < min_q) | (nq > max_q)) & mask).sum(axis=1)
+        out = (((nq < min_q) | (nq > max_q)) & qmask).sum(axis=1)
         ok &= out <= thr["max_oq"]
     for side in ("left", "right"):
         length, lo, hi = thr[side]
@@ -166,13 +175,16 @@ def _kmers(codes, lens):
 
 
 def _thresholds(read_length_range=None, read_quality_range=None,
-                max_N=None, max_out_of_quality=None, left=None, right=None):
+                max_N=None, max_out_of_quality=None, left=None, right=None,
+                quality_window=None):
     """(filter on?, thresholds) of the keywords of :func:`reference_stats`;
     with no threshold set the filter is off."""
     filter_on = any(v is not None for v in (
         read_length_range, read_quality_range, max_N, max_out_of_quality,
-        left, right))
+        left, right, quality_window))
     return filter_on, {
+        "window": QUALITY_WINDOW_OFF if quality_window is None
+        else tuple(max(int(x), 0) for x in quality_window),
         "length": _bounds(read_length_range),
         "quality": _bounds(read_quality_range),
         "max_oq": MAX_VALUE if max_out_of_quality is None
@@ -322,16 +334,20 @@ def reference_paired_stats(records1, records2, phred: int = 33,
 def reference_stats(records, phred: int = 33, chunk: int = CHUNK_ELEMS,
                     read_length_range=None, read_quality_range=None,
                     max_N=None, max_out_of_quality=None, left=None,
-                    right=None, kmers: bool = False) -> ReferenceCounters:
+                    right=None, quality_window=None,
+                    kmers: bool = False) -> ReferenceCounters:
     """Counters of ``stats`` over ``records`` with the given thresholds,
     as the single-CPU oracle computes them: statistics over the passing
     reads only, integer histogram keys, and ``acc_quality`` the f64 sum of
     each read's f32 mean quality [D1].  With no threshold set the filter
     is off: every read counts, and the passed/failed counts stay 0.
-    ``kmers`` adds ``kmer_counts`` and ``kmer_counts_by_pos``.  ``chunk``
-    bounds the padded bases (rows x width) of one chunk."""
+    ``kmers`` adds ``kmer_counts`` and ``kmer_counts_by_pos``;
+    ``quality_window`` is the legacy ``[begin, end)`` window [D8] of
+    ``hpgq_torch.api.filter_criteria``.  ``chunk`` bounds the padded bases
+    (rows x width) of one chunk."""
     filter_on, thr = _thresholds(read_length_range, read_quality_range,
-                                 max_N, max_out_of_quality, left, right)
+                                 max_N, max_out_of_quality, left, right,
+                                 quality_window)
     width = max((len(r[1]) for r in records), default=0)
     c = ReferenceCounters(
         min_length=MAX_VALUE,

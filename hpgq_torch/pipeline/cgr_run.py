@@ -50,6 +50,7 @@ from .run import (
     _batch_reads,
     _check_ported,
     _count,
+    _iter_blocks,
     _iter_with,
     _reader_batch,
 )
@@ -109,6 +110,14 @@ class CgrSession:
     def feed_block(self, block) -> None:
         self.fold_host(self.block_tables(block))
 
+    def feed_all(self, blocks, timers) -> None:
+        """Every block's tables, computed on the pool threads (blocks are
+        independent) and summed here in input order."""
+        for block, host in _iter_with(blocks, self.block_tables, timers):
+            _count(timers, block)
+            with timers.stage("compute"):
+                self.fold_host(host)
+
 
 def _config_key(opts, k: int, phred: int) -> str:
     """Checkpoint fingerprint, the string ``hpgq`` writes."""
@@ -127,6 +136,10 @@ def run_cgr(opts: CgrOptions, timers: Optional[StageTimers] = None,
     dev = resolve_device(device)
     _check_ported(opts, "cgr")
     timers = timers or StageTimers()
+    if opts.sharded:
+        from ..dist.run_dist import run_cgr_sharded
+
+        return run_cgr_sharded(opts, timers, device=dev)
     k = int(opts.k)
     phred = opts.quality_encoding_value
     sess = CgrSession(k, phred, _batch_reads(opts, dev), dev)
@@ -155,15 +168,11 @@ def run_cgr(opts: CgrOptions, timers: Optional[StageTimers] = None,
         with FastqReader(path, batch_size=_reader_batch(opts, dev),
                          start_offset=offset) as rd:
             if not ck_path:
-                for block, host in _iter_with(rd, sess.block_tables, timers):
-                    _count(timers, block)
-                    with timers.stage("compute"):
-                        sess.fold_host(host)
+                sess.feed_all(rd, timers)
                 continue
             # a checkpoint holds the tables of every block up to its offset:
             # fold in order on this thread
-            for block in rd:
-                _count(timers, block)
+            for block in _iter_blocks(rd, timers):
                 with timers.stage("compute"):
                     sess.feed_block(block)
                 nb += 1

@@ -21,8 +21,9 @@ the way:
 
 Paired-end: mates stream in lockstep, and a pair counts (stats with a
 filter) or passes (filter, edit's post-filter) only when both mates pass.
-``--sharded`` and ``--profile-dir`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+``--sharded`` runs go through :mod:`hpgq_torch.dist.run_dist`, which runs
+these pipelines on each rank's part of the input; ``--profile-dir`` raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -171,6 +172,20 @@ def _device_batches(items, pack, dev, depth: int = 0, workers: int = 0):
                 t.record_stream(cur)
         yield item, arrs
         del keep
+
+
+def _iter_blocks(reader, timers, depth: int = 3):
+    """The reader's blocks, read and indexed ``depth`` blocks ahead on a
+    producer thread (``hpgq/pipeline/run.py:120-134``); the ``read`` stage
+    is the wait for the next block."""
+    it = prefetched(iter(reader), depth=depth)
+    while True:
+        with timers.stage("read"):
+            block = next(it, None)
+        if block is None:
+            return
+        _count(timers, block)
+        yield block
 
 
 def _iter_packed(reader, sess, batch_reads: int, timers, depth: int = 0,
@@ -374,15 +389,10 @@ def _run_stats_parallel_paired(opts, timers, device, report: bool = True):
 
 
 def _check_ported(opts, command: str) -> None:
-    missing = [
-        (getattr(opts, "sharded", False), "--sharded", 14),
-        (getattr(opts, "profile_dir", None), "--profile-dir", 16),
-    ]
-    for cond, what, item in missing:
-        if cond:
-            raise NotImplementedError(
-                "hpgq_torch %s: %s is not ported yet (ROADMAP.md queue 1 "
-                "item %d); use hpgq for it" % (command, what, item))
+    if getattr(opts, "profile_dir", None):
+        raise NotImplementedError(
+            "hpgq_torch %s: --profile-dir is not ported yet (ROADMAP.md "
+            "queue 1 item 16); use hpgq for it" % command)
     if not getattr(opts, "use_pallas", True):
         logging.getLogger("hpgq").warning(
             "--no-pallas has no effect in hpgq_torch: CUDA runs the K1/K2 "

@@ -143,6 +143,11 @@ class StatsSession:
     def finish(self):
         return self.acc.finish()
 
+    def take(self):
+        """The counters since the start or the last take, then zero ones
+        (a sharded checkpoint's fold)."""
+        return self.acc.take()
+
 
 class PairedStatsSession:
     """Streaming paired-end stats: both mates' verdicts and partials in one
@@ -160,9 +165,14 @@ class PairedStatsSession:
         self.device = torch.device(device)
         self.wire = resolve_wire(wire, self.device)
         self.kmers_on = kmers_on
-        self.counters1 = StatsCounters(phred=phred, kmers_on=kmers_on)
-        self.counters2 = StatsCounters(phred=phred, kmers_on=kmers_on)
+        self._zero_counters()
         self._rebuild(lcap)
+
+    def _zero_counters(self):
+        self.counters1 = StatsCounters(phred=self.phred,
+                                       kmers_on=self.kmers_on)
+        self.counters2 = StatsCounters(phred=self.phred,
+                                       kmers_on=self.kmers_on)
 
     def _rebuild(self, lcap: int):
         self.lcap = lcap
@@ -218,6 +228,15 @@ class PairedStatsSession:
     def finish(self):
         self.flush()
         return self.counters1, self.counters2
+
+    def take(self):
+        """Both mates' counters since the start or the last take, then
+        zero ones (a sharded checkpoint's fold)."""
+        done = self.finish()
+        self._zero_counters()
+        for c in (self.counters1, self.counters2):
+            c.ensure_length(self.lcap)
+        return done
 
 
 def to_device(packed: tuple, device, non_blocking: bool = False,

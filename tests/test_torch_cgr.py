@@ -306,12 +306,30 @@ def test_api_matches_hpgq_api(tmp_path):
     assert got["fq_word_count"] == want["fq_word_count"] > 0
 
 
-def test_sharded_raises_naming_its_item(tmp_path):
-    import hpgq_torch
+def test_checkpointed_cgr_reads_ahead(tmp_path):
+    """The resumable loop reads through the prefetching iterator, as
+    ``hpgq``'s does: its ``--t`` report has a ``read`` line, and the tables
+    equal those of a run with no checkpoint."""
+    import contextlib
+    import io
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        hpgq_torch.cgr(_inputs(tmp_path, False)[0], outdir=str(tmp_path),
-                       sharded=True, device="cpu")
+    from hpgq_torch.utils.timers import StageTimers
+
+    path = _inputs(tmp_path, False, n=1200)[0]
+    want = cgr_run.run_cgr(_opts(CgrOptions, [path], tmp_path / "w", None),
+                           device="cpu")
+    timers = StageTimers()
+    got = cgr_run.run_cgr(_opts(CgrOptions, [path], tmp_path / "c",
+                                str(tmp_path / "ck.npz")), timers,
+                          device="cpu")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        timers.report()
+    assert "total read time" in out.getvalue()
+    assert timers.num_batches == 12
+    np.testing.assert_array_equal(got["table_seq"], want["table_seq"])
+    np.testing.assert_array_equal(got["table_q"], want["table_q"])
+    assert got["fq_word_count"] == want["fq_word_count"]
 
 
 def test_pool_threads_lose_no_table(tmp_path, monkeypatch):

@@ -52,6 +52,14 @@ FILTERS = {
     "windows": dict(left=(8, (20, 60)), right=(8, (25, None))),
     "out_of_quality": dict(read_quality_range=(15, 40),
                            max_out_of_quality=30),
+    # [D8] the legacy quality position window: on short reads, and past
+    # 512 columns and past the read's end on the long ones
+    "quality_window": dict(read_quality_range=(20, 23),
+                           quality_window=(10, 40)),
+    "window_oq": dict(read_quality_range=(15, 40), max_out_of_quality=5,
+                      quality_window=(30, 5000)),
+    "window_long": dict(read_quality_range=(21, 22),
+                        quality_window=(500, 900)),
 }
 
 

@@ -476,6 +476,24 @@ chip_smoke.cgr_self_diff(path, gs["single-end"], 7,
                          os.path.join(outdir, "self"), "cpu")
 cells = chip_smoke.cgr_direct_checks("cpu", n_overflow=4)
 assert max(cells.values()) == 4 * 4095 * 186, cells
+# phase 8's window run and phase 9's paired long reads, small
+assert 0 < runs["window"][0].num_passed < len(lrec)
+got, _, tiers = chip_smoke.paired_long_run(
+    *chip_smoke.long_pairs(outdir, n=20, n_huge=2), outdir, "cpu")
+assert 0 < got[0].num_passed < 22 and sum(tiers.values()) == 2, tiers
+# phase 13 small: sharded stats at world size 1 (no group, then launched),
+# the legacy --qc --filter run, and two ranks over gloo
+_, _, res = chip_smoke.sharded_world1(path, records,
+                                      os.path.join(outdir, "w1"), "cpu",
+                                      outdir)
+assert res["world"] == 1, res
+assert chip_smoke.legacy_qc_filter(path, records,
+                                   os.path.join(outdir, "legacy"),
+                                   "cpu")[0] > 0
+res2 = chip_smoke.sharded_ranks(((path, records), (m2, rec2),
+                                 (lpath, lrec)),
+                                os.path.join(outdir, "w2"), "cpu", outdir)
+assert len(res2) == 7, sorted(res2)
 print("ok", len(names))
 """
 
@@ -489,14 +507,17 @@ def test_imports_load_no_jax(tmp_path):
     chip_smoke's end-to-end check (the bench filter over 2u-wire batches,
     held against ``hpgq_torch.oracle``), its long-read check (k-mers and
     a long-read filter), its paired-stats check (phase 9), its filter
-    check (phase 10), its edit and prepro checks (phase 11) and its CGR
-    checks (phase 12) run small on the CPU."""
+    check (phase 10), its edit and prepro checks (phase 11), its CGR
+    checks (phase 12), the long-read window run and paired long reads
+    (phases 8-9) and its ``--sharded`` and legacy CLI checks (phase 13:
+    world size 1 with and without the launcher's variables, two ranks
+    over gloo) run small on the CPU."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, REPO, str(tmp_path / "in.fq"),
          str(tmp_path)], capture_output=True, text=True, cwd=str(tmp_path),
         timeout=300)
     assert out.returncode == 0, out.stderr
-    ok, n = out.stdout.split()
+    ok, n = out.stdout.strip().splitlines()[-1].split()
     assert ok == "ok" and int(n) > 20
 
 
@@ -539,33 +560,6 @@ def test_cuda_request_raises_here(tmp_path, capsys):
     assert captured.out == ""
     assert "CUDA is not available" in captured.err
     assert not any(n.endswith(".summary.txt") for n in os.listdir(tmp_path))
-
-
-@pytest.mark.parametrize("flag", ["--qc", "--quality-control", "--filter",
-                                  "--prep", "--preprocessing", "--cg",
-                                  "--chaos-game"])
-def test_unported_legacy_flags_exit_nonzero(tmp_path, capsys, flag):
-    """The legacy single-binary action flags (``hpgq/cli/main.py:
-    406-580``) exit non-zero naming their ROADMAP item, and run nothing."""
-    path = _corpus(tmp_path, "golden")
-    rc = port_main([flag, "--fq", path, "--outdir", str(tmp_path),
-                    "--device", "cpu"])
-    captured = capsys.readouterr()
-    assert rc != 0 and captured.out == ""
-    assert "not ported yet" in captured.err and "item 17" in captured.err
-    assert flag in captured.err
-    assert os.listdir(tmp_path) == ["golden.fq"]
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(sharded=True), "--sharded"),
-], ids=["sharded"])
-def test_unported_options_raise(tmp_path, kw, what):
-    path = _corpus(tmp_path, "golden")
-    import hpgq_torch
-
-    with pytest.raises(NotImplementedError, match=what):
-        hpgq_torch.stats(path, outdir=str(tmp_path), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("filtered", [False, True], ids=["all", "filter"])
