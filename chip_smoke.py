@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # phases 1-5 and 7-13 (one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5 and 7-15 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
@@ -101,19 +101,36 @@ Phases, each printing its own lines:
     and one world-2 pass.  ``--ranks N`` runs N ranks instead of two: on
     a machine with N cards each rank has its own (``--phases 13 --ranks 4``
     on four cards).
+14. Inputs: phase 4's corpus as plain gzip and as BGZF, ``stats`` with the
+    bench filter over each (counters equal to the reference, every report
+    file equal to the plain input's but where it names the input), ``cgr``
+    k=7 over the gzip file (``BASELINE.json`` config 5: tables, PGM and
+    ``.gs`` against the reference), ``filter`` over the BGZF file (bytes
+    against the reference's selection); ``tools/validate_device.py``'s
+    ``check_coalesced`` (100,000 reads of 100 bp in blocks of an explicit
+    10,000, ``HPGQ_COALESCE=131072``: counters equal to the reference, fewer
+    K1 launches than reader blocks); ``stats`` with and without
+    ``--profile-dir`` (counters and report bytes equal, the trace holds
+    K1's kernel) and ``filter`` with it.  Then one warm pass each of gzip
+    and BGZF ``stats`` and of ``cgr`` over gzip.
+15. Fuzz: 12 rounds of ``tools/fuzz_torch.py`` (seed 4, every command
+    among them, sharded, paired and interrupted rounds too) on the card,
+    each held against the reference.
 
-Phases 9-13 reuse the corpora of phases 4 and 8, and write them when
-those phases are not selected.  On an NVIDIA H100 80GB HBM3 (700 W) the
-default run takes about 500 s of command time, the build included;
-``--phases 9,10`` alone takes about 135 s and ``--phases 11,12`` about
-235 s, since each writes all three corpora itself (about 50 s);
-``--phases 7,8,9,13`` took 323 s.  The
+Phases 9-14 reuse the corpora of phases 4 and 8, and write them when
+those phases are not selected; each phase prints its seconds (PERF.md
+§5 keeps the last default run's, on an NVIDIA H100 80GB HBM3 at 700 W).
+Alone, a phase pays for the corpora it needs: ``--phases 9,10`` took
+about 135 s of command time, ``--phases 11,12`` about 235 s,
+``--phases 14,15`` 185 s (the 1M-read corpus, then its gzip and BGZF
+files).  The
 kernels line gives K1's plain and 2u entries and K2 with their launches
 on the paths that drive them (phase 4, 9's unfiltered run and 13's
-sharded stats for the 2u entry; phases 5, 9's filtered run, 11's stats
-over the trimmed short reads and 13's sharded paired stats for the plain
-entry; phase 8, 9's long pairs, 11's stats over the trimmed long reads
-and 13's sharded long-read stats for K2).
+sharded stats, 14's gzip, BGZF and profiled stats for the 2u entry;
+phases 5, 9's filtered run, 11's stats over the trimmed short reads, 13's
+sharded paired stats and 14's coalesced run for the plain entry; phase 8,
+9's long pairs, 11's stats over the trimmed long reads and 13's sharded
+long-read stats for K2; phase 15's fuzz rounds for either K1 entry).
 
 Imports nothing of jax and nothing of the JAX package ``hpgq``: the run
 and every rank it starts block ``import jax`` and ``import hpgq``, so a
@@ -1820,13 +1837,344 @@ def phase_sharded(tmp, smi, ranks=2):
             total("K2", "long reads"))
 
 
+# ---------------------------------------------------------------- phase 14
+
+COALESCED = dict(read_quality_range=(18, 40), max_N=3)  # validate_device:279
+
+
+def compressed_corpora(path):
+    """``path`` as plain gzip (level 6, ``bench.py:92-101``) and as BGZF
+    (``hpgq_torch.io.bgzf.write_bgzf``), written once per run, the two at
+    once (zlib releases the interpreter lock)."""
+    import concurrent.futures
+    import gzip
+
+    from hpgq_torch.io.bgzf import write_bgzf
+
+    def gz(dst):
+        with open(path, "rb") as f, gzip.open(dst, "wb", 6) as g:
+            shutil.copyfileobj(f, g, 4 << 20)
+
+    def bgz(dst):
+        with open(path, "rb") as f:
+            write_bgzf(dst, f.read())
+
+    out = (path + ".gz", path + ".bgz")
+    if not os.path.exists(out[1]):
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for job in [pool.submit(fn, dst) for fn, dst in zip((gz, bgz),
+                                                               out)]:
+                job.result()
+        say("corpus", "%s as gzip (%d bytes) and as BGZF (%d bytes) in %.1f s"
+            % (os.path.basename(path), os.path.getsize(out[0]),
+               os.path.getsize(out[1]), time.perf_counter() - t0))
+    return out
+
+
+def same_report_set(got_dir, got_input, want_dir, want_input, label):
+    """The report files of ``got_input`` in ``got_dir`` equal those of
+    ``want_input`` in ``want_dir``, except where they name the input file
+    or the directory (the summary's ``FastQ filename`` line, the chart
+    scripts' paths); the ``Mean quality`` line as :func:`same_report`."""
+    def reports(d, name):
+        return {f[len(name):]: os.path.join(d, f) for f in os.listdir(d)
+                if f.startswith(name + ".")}
+
+    got = reports(got_dir, os.path.basename(got_input))
+    want = reports(want_dir, os.path.basename(want_input))
+    check(got and sorted(got) == sorted(want), "%s: report files %s, the "
+          "plain input's %s" % (label, sorted(got), sorted(want)))
+    for suffix in want:
+        texts = []
+        for d, name, path in ((got_dir, got_input, got[suffix]),
+                              (want_dir, want_input, want[suffix])):
+            with open(path, "rb") as f:
+                texts.append(f.read().replace(d.encode(), b"<OUT>").replace(
+                    os.path.basename(name).encode(), b"<INPUT>"))
+        same_report(texts[0], texts[1], label + " " + suffix)
+
+
+def coalesced_run(path, records, outdir, device):
+    """``tools/validate_device.py:check_coalesced``: ``stats`` with
+    :data:`COALESCED`, ``batch_size=10000`` set explicitly and
+    ``HPGQ_COALESCE=131072``, held against the reference.  Returns (reader
+    blocks, batches dispatched, launches)."""
+    from hpgq_torch.api import filter_criteria
+    from hpgq_torch.breakdown import environ
+    from hpgq_torch.io.fastq import FastqReader
+    from hpgq_torch.kernels import step
+    from hpgq_torch.options import StatsOptions
+    from hpgq_torch.oracle import assert_counters_equal, reference_stats
+    from hpgq_torch.pipeline.run import run_stats
+
+    with FastqReader(path, batch_size=10000) as rd:
+        blocks = sum(1 for _ in rd)
+    reset_counts()
+    with environ({"HPGQ_COALESCE": "131072"}):
+        got = run_stats(StatsOptions(
+            in_filename=path, out_dirname=outdir,
+            quality_encoding_name="phred33", batch_size=10000,
+            batch_size_set=True, criteria=filter_criteria(**COALESCED),
+            filter_on=True), device=device)
+    dispatched = sum(step.WIRE_BATCHES.values())
+    launches = launch_counts()
+    assert_counters_equal(got, reference_stats(records, **COALESCED),
+                          "coalesced stats")
+    check(0 < dispatched < blocks, "coalesced stats dispatched %d batches "
+          "for %d reader blocks" % (dispatched, blocks))
+    return blocks, dispatched, launches
+
+
+def profiled_runs(path, records, outdir, device):
+    """``stats`` with the bench filter with and without ``--profile-dir``
+    (counters equal to the reference, report files byte-equal), then
+    ``filter`` with it (files equal to the reference's selection).  Each
+    profiled run writes one Chrome trace.  Returns {run: (seconds,
+    launches, trace events by kind)}; the kinds are ``kernel`` (device
+    kernels, CUDA only), ``k1`` (K1's among them) and ``all``."""
+    import torch
+
+    from hpgq_torch.api import filter_criteria
+    from hpgq_torch.options import FilterOptions, StatsOptions
+    from hpgq_torch.oracle import (
+        assert_counters_equal,
+        fastq_bytes,
+        reference_verdicts,
+    )
+    from hpgq_torch.pipeline.run import run_filter, run_stats
+
+    prof = os.path.join(outdir, "prof")
+    crit = filter_criteria(**BENCH_FILTER)
+    want = cached_reference(reference_stats_of, records, **BENCH_FILTER)
+    out, runs = {}, {}
+    for run in ("stats", "stats, profiled", "filter, profiled"):
+        od = out[run] = os.path.join(outdir, run.replace(", ", "_"))
+        os.makedirs(od)
+        kw = dict(profile_dir=prof) if "profiled" in run else {}
+        cls = StatsOptions if run.startswith("stats") else FilterOptions
+        opts = cls(in_filename=path, out_dirname=od,
+                   quality_encoding_name="phred33", criteria=crit,
+                   filter_on=True, **kw)
+        before = set(os.listdir(prof)) if os.path.isdir(prof) else set()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = (run_stats if cls is StatsOptions else run_filter)(
+            opts, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        events = {}
+        if kw:
+            new = sorted(set(os.listdir(prof)) - before)
+            check(len(new) == 1 and new[0].endswith(".pt.trace.json"),
+                  "%s: wrote %s into the profile directory" % (run, new))
+            with open(os.path.join(prof, new[0])) as f:
+                evs = json.load(f)["traceEvents"]
+            kernels = [e for e in evs if e.get("cat") == "kernel"]
+            events = {"all": len(evs), "kernel": len(kernels),
+                      "k1": sum("stats_k1_kernel" in e.get("name", "")
+                                for e in kernels)}
+            check(events["all"] > 0, "%s: an empty trace" % run)
+        runs[run] = (secs, launch_counts(), events)
+        if cls is StatsOptions:
+            assert_counters_equal(got, want, run)
+        else:
+            ok = cached_reference(reference_verdicts, records, **BENCH_FILTER)
+            for name, sel in (("passed.fq", ok), ("failed.fq", ~ok)):
+                with open(os.path.join(od, name), "rb") as f:
+                    check(f.read() == fastq_bytes(records, sel), "%s: %s "
+                          "differs from the reference's selection"
+                          % (run, name))
+    names = sorted(os.listdir(out["stats"]))
+    check(names and names == sorted(os.listdir(out["stats, profiled"])),
+          "the profiled stats run wrote other files")
+    for name in names:
+        with open(os.path.join(out["stats"], name), "rb") as a, \
+                open(os.path.join(out["stats, profiled"], name), "rb") as b:
+            check(a.read().replace(out["stats"].encode(), b"<OUT>")
+                  == b.read().replace(out["stats, profiled"].encode(),
+                                      b"<OUT>"),
+                  "profiled stats: %s differs from the unprofiled run's"
+                  % name)
+    return runs
+
+
+def reference_stats_of(records, **kw):
+    from hpgq_torch.oracle import reference_stats
+
+    return reference_stats(records, **kw)
+
+
+def input_runs(path, records, tmp, device, n_coalesced=100_000):
+    """Phase 14's checks on ``device``: ``stats`` + bench filter over
+    ``path`` as gzip and as BGZF (counters equal to the reference, report
+    sets equal to the plain input's but for its name), ``cgr`` k=7 over
+    the gzip file, ``filter`` over the BGZF file, the coalesced run and
+    the profiled runs.  Returns {run: (seconds, launches, detail)}."""
+    import torch
+
+    import hpgq_torch
+    from gen import make_fastq
+    from hpgq_torch.oracle import assert_counters_equal
+    from hpgq_torch.pipeline import cgr_run
+
+    gz, bgz = compressed_corpora(path)
+    want = cached_reference(reference_stats_of, records, **BENCH_FILTER)
+    plain = tempfile.mkdtemp(dir=tmp)
+    run_stats_kw(path, plain, device, **BENCH_FILTER)
+    out = {}
+    for label, cpath in (("stats, gzip", gz), ("stats, BGZF", bgz)):
+        od = tempfile.mkdtemp(dir=tmp)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = run_stats_kw(cpath, od, device, **BENCH_FILTER)
+        secs = time.perf_counter() - t0
+        out[label] = (secs, launch_counts(), got.num_passed)
+        assert_counters_equal(got, want, label)
+        same_report_set(od, cpath, plain, path, label)
+    cgr_run.BATCHES.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = hpgq_torch.cgr(gz, outdir=tempfile.mkdtemp(dir=tmp), k=7,
+                         write_gs=True, device=device)
+    out["cgr k=7, gzip"] = (time.perf_counter() - t0, launch_counts(),
+                            cgr_check(res, (records,), 7, tmp, "cgr, gzip"))
+    check({d for d, _ in cgr_run.BATCHES} == {device},
+          "cgr over gzip: a batch ran off the %s (%s)" % (device,
+                                                         cgr_run.BATCHES))
+    reset_counts()
+    (res, batches, secs), = filter_runs(
+        [("filter, BGZF", (bgz,), (records,), BENCH_FILTER)], tmp,
+        device).values()
+    out["filter, BGZF"] = (secs, launch_counts(), res["num_passed"])
+    check({d for d, _ in batches} == {device},
+          "filter over BGZF: a verdict ran off the %s (%s)" % (device,
+                                                              batches))
+    cpath, crecs = cached_corpus(
+        os.path.join(tmp, "devval_%d.fq" % n_coalesced),
+        lambda p: make_fastq(p, n_coalesced, min_len=100, max_len=100,
+                             n_prob=0.005, seed=7))
+    t0 = time.perf_counter()
+    blocks, dispatched, launches = coalesced_run(
+        cpath, crecs, tempfile.mkdtemp(dir=tmp), device)
+    out["coalesced stats"] = (time.perf_counter() - t0, launches,
+                              (blocks, dispatched))
+    for run, res in profiled_runs(path, records, tempfile.mkdtemp(dir=tmp),
+                                  device).items():
+        out[run] = res
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def phase_inputs(tmp, smi):
+    """Phase 14; returns the launches of K1's plain and 2u entries."""
+    import torch
+
+    import hpgq_torch
+
+    path, records = bench_corpus(tmp)
+    t0 = time.perf_counter()
+    runs = input_runs(path, records, tmp, "cuda")
+    for run, (secs, n, detail) in runs.items():
+        say("inputs", "%s: %.3f s, launches %s; == reference (%s)"
+            % (run, secs, n, detail))
+    check(all(runs[r][1]["K1 2u"] > 0 for r in ("stats, gzip", "stats, BGZF",
+                                               "stats, profiled")),
+          "gzip, BGZF and profiled stats must launch K1's 2u entry")
+    blocks, dispatched = runs["coalesced stats"][2]
+    k1 = runs["coalesced stats"][1]["K1"]
+    check(0 < k1 < blocks, "coalesced stats: %d K1 launches for %d reader "
+          "blocks" % (k1, blocks))
+    ev = runs["stats, profiled"][2]
+    check(ev["k1"] > 0, "the profiled stats trace holds no K1 event (%s)"
+          % ev)
+    check(runs["filter, profiled"][2]["kernel"] > 0,
+          "the profiled filter trace holds no device kernel")
+    say("inputs", "coalesced: %d reader blocks of 10,000 reads went to %d K1 "
+        "launch(es); profiled stats: trace of %d events, %d device kernels, "
+        "%d of them K1, %.3f s against %.3f s unprofiled"
+        % (blocks, k1, ev["all"], ev["kernel"], ev["k1"],
+           runs["stats, profiled"][0], runs["stats"][0]))
+    say("inputs", "checks took %.1f s" % (time.perf_counter() - t0))
+    gz, bgz = compressed_corpora(path)
+    for label, fn in (
+            ("stats + bench filter, gzip", lambda od: run_port(
+                gz, od, BENCH_FILTER)),
+            ("stats + bench filter, BGZF", lambda od: run_port(
+                bgz, od, BENCH_FILTER)),
+            ("cgr k=7 over gzip", lambda od: hpgq_torch.cgr(
+                gz, outdir=od, k=7, device="cuda"))):
+        t0 = time.perf_counter()
+        fn(tempfile.mkdtemp(dir=tmp))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        say("inputs", "%s, one warm pass: %.0f reads/s (%.3f s), on %s"
+            % (label, len(records) / dt, dt, smi))
+
+    def total(kernel):
+        return sum(r[1][kernel] for r in runs.values())
+
+    return total("K1"), total("K1 2u")
+
+
+# ---------------------------------------------------------------- phase 15
+
+FUZZ_SEED, FUZZ_ROUNDS = 4, 12  # seed 4's 12 rounds draw sharded,
+# checkpointed and paired rounds of every command
+
+
+def fuzz_rounds(device, rounds=FUZZ_ROUNDS, seed=FUZZ_SEED, max_n=4000):
+    """``tools/fuzz_torch.py``'s rounds on ``device``, each held against
+    the oracle there; returns [(config, launches, seconds)]."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import fuzz_torch
+
+    cfgs = fuzz_torch.configs(rounds, seed, max_n)
+    check({c["cmd"] for c in cfgs} == set(fuzz_torch.COMMANDS),
+          "the fuzz rounds draw %s" % sorted({c["cmd"] for c in cfgs}))
+    out = []
+    for cfg in cfgs:
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            fuzz_torch.run_round(cfg, device)
+        except AssertionError as e:
+            raise SmokeFailure("fuzz round %d: %s; config %s"
+                               % (cfg["round"], e,
+                                  json.dumps(cfg, sort_keys=True)))
+        out.append((cfg, launch_counts(), time.perf_counter() - t0))
+    return out
+
+
+def phase_fuzz():
+    """Phase 15; returns the launches of K1's plain and 2u entries."""
+    t0 = time.perf_counter()
+    rounds = fuzz_rounds("cuda")
+    for cfg, n, secs in rounds:
+        say("fuzz", "round %d: %s%s%s%s, %d reads, wire %s, batch %d: %.2f s, "
+            "launches %s; == reference" % (
+                cfg["round"], cfg["cmd"], ", paired" * cfg["paired"],
+                ", sharded" * cfg["sharded"],
+                ", interrupted and resumed" * bool(cfg.get("interrupted")),
+                cfg["n"], cfg["wire"], cfg["batch_size"], secs, n))
+    k1 = sum(n["K1"] for _, n, _ in rounds)
+    k1u = sum(n["K1 2u"] for _, n, _ in rounds)
+    check(k1 + k1u > 0, "the fuzz rounds launched K1 no time")
+    say("fuzz", "%d rounds (seed %d), every one == reference, in %.1f s"
+        % (len(rounds), FUZZ_SEED, time.perf_counter() - t0))
+    return k1, k1u
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default 1-5 and "
-                         "7-13; 6, the stage breakdown, runs only when "
+                         "7-15; 6, the stage breakdown, runs only when "
                          "asked for; the card and the build always run)")
     ap.add_argument("--ranks", type=int, default=2,
                     help="ranks of phase 13's multi-rank runs (default 2, "
@@ -1888,6 +2236,16 @@ def main(argv=None):
                "hpgq/kernels/stats_pallas.py:281")
     tmp = tempfile.mkdtemp(prefix="hpgq_torch_smoke_")
     se_passed = None
+    running = []
+
+    def clock(phase):
+        """Print the seconds of the phase that ran until now."""
+        now = time.perf_counter()
+        if running:
+            say("time", "phase %d took %.1f s" % (running[0], now
+                                                   - running[1]))
+        running[:] = [] if phase is None else [phase, now]
+
     try:
         # launches come from the paths that drive each kernel: the main
         # path (phase 4) and paired stats with no filter (9) for the 2u
@@ -1895,38 +2253,60 @@ def main(argv=None):
         # over the trimmed short reads (11) for the plain entry; long
         # reads (8) and stats over the trimmed long reads (11) for K2
         if 3 in phases:
+            clock(3)
             res = phase_kernel(dev)
             k1.update(res["K1"])
             k1u.update(res["K1 2u"])
         if 7 in phases:
+            clock(7)
             k2.update(phase_k2(dev))
         if 4 in phases:
+            clock(4)
             n, se_passed = phase_end_to_end(tmp, smi)
             k1u["launches"] += n
         if 5 in phases:
+            clock(5)
             k1["launches"] += phase_tiers(tmp)
         if 8 in phases:
+            clock(8)
             k2["launches"] += phase_long_reads(tmp, smi)
         if 9 in phases:
+            clock(9)
             n_plain, n_2u, n_k2 = phase_paired(tmp, smi)
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
             k2["launches"] += n_k2
         if 10 in phases:
+            clock(10)
             phase_filter(tmp, smi, se_passed)
         if 11 in phases:
+            clock(11)
             n_plain, n_k2 = phase_edit(tmp, smi)
             k1["launches"] += n_plain
             k2["launches"] += n_k2
         if 12 in phases:
+            clock(12)
             phase_cgr(tmp, smi)
         if 13 in phases:
+            clock(13)
             n_plain, n_2u, n_k2 = phase_sharded(tmp, smi, args.ranks)
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
             k2["launches"] += n_k2
+        if 14 in phases:
+            clock(14)
+            n_plain, n_2u = phase_inputs(tmp, smi)
+            k1["launches"] += n_plain
+            k1u["launches"] += n_2u
+        if 15 in phases:
+            clock(15)
+            n_plain, n_2u = phase_fuzz()
+            k1["launches"] += n_plain
+            k1u["launches"] += n_2u
         if 6 in phases:
+            clock(6)
             phase_breakdown(tmp, smi)
+        clock(None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

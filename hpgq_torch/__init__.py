@@ -12,9 +12,10 @@ reads of any length, with and without the inline filter and with
 ``--kmers``; ``filter``; ``edit`` and ``prepro``; ``cgr`` (``python -m
 hpgq_torch <command> ...``, or :func:`hpgq_torch.stats`,
 :func:`~hpgq_torch.filter_reads`, :func:`~hpgq_torch.edit`,
-:func:`~hpgq_torch.prepro`, :func:`~hpgq_torch.cgr`).  Not yet: the
-multi-process ``--sharded`` runs and the legacy single-binary flags.  The
-device is explicit: ``"cuda"`` by default, ``"cpu"`` only when asked for.
+:func:`~hpgq_torch.prepro`, :func:`~hpgq_torch.cgr`); ``--sharded`` runs
+over ``torch.distributed``, the legacy single-binary flags and
+``--profile-dir``.  The device is explicit: ``"cuda"`` by default,
+``"cpu"`` only when asked for.
 """
 
 __version__ = "0.1.0"

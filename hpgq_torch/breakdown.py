@@ -105,13 +105,18 @@ def end_to_end(path, outdir, dev, turns: int, out=sys.stdout):
     return times
 
 
-def stages(path, dev, out=sys.stdout):
-    """Each stage alone, one thread, over the whole file."""
+def stages(path, dev, out=sys.stdout) -> dict:
+    """Each stage alone, one thread, over the whole file; prints each and
+    returns the numbers (``busy`` only on CUDA: the profiled steps'
+    ``(device ms, K1/K2 ms, wall ms)``, None where the profiler saw no
+    device)."""
+    res = {}
     t0 = time.perf_counter()
     with FastqReader(path, batch_size=READER_BATCH) as rd:
         blocks = list(rd)
     dt = time.perf_counter() - t0
     n = sum(b.num_reads for b in blocks)
+    res["read_reads_per_sec"] = n / dt
     print("read + newline index: %.3f s = %.0f reads/s (%d blocks)"
           % (dt, n / dt, len(blocks)), file=out, flush=True)
 
@@ -121,6 +126,7 @@ def stages(path, dev, out=sys.stdout):
     packed = [sess.pack(b, READER_BATCH) for b in blocks]
     dt = time.perf_counter() - t0
     nbytes = sum(a.nbytes for p in packed for a in _arrays(p))
+    res.update(pack_reads_per_sec=n / dt, wire_bytes_per_read=nbytes / n)
     print("pack (wire %s): %.3f s = %.0f reads/s, %.1f wire bytes/read"
           % (sess.acc.wire, dt, n / dt, nbytes / n), file=out, flush=True)
 
@@ -129,6 +135,7 @@ def stages(path, dev, out=sys.stdout):
     on_dev = [to_device(p, dev) for p in packed]
     _sync(dev)
     dt = time.perf_counter() - t0
+    res["copy_mb_per_sec"] = nbytes / dt / 1e6
     print("pin + copy to %s: %.3f s = %.0f MB/s"
           % (dev, dt, nbytes / dt / 1e6), file=out, flush=True)
 
@@ -140,15 +147,18 @@ def stages(path, dev, out=sys.stdout):
         sess.feed_packed(*args)
     _sync(dev)
     dt = time.perf_counter() - t0
+    res["steps_ms_per_batch"] = dt * 1e3 / len(on_dev)
     print("device steps (decode, pad, K1/K2, merge), %d batches on the "
           "device: "
           "%.3f ms = %.3f ms/batch wall" % (len(on_dev), dt * 1e3,
                                            dt * 1e3 / len(on_dev)),
           file=out, flush=True)
     if dev.type == "cuda":
-        busy = _device_ms(lambda: [sess.feed_packed(*a) for a in on_dev], dev)
-        print("  of which device time %s" % _fmt_busy(busy), file=out,
-              flush=True)
+        res["busy"] = _device_ms(lambda: [sess.feed_packed(*a)
+                                          for a in on_dev], dev)
+        print("  of which device time %s" % _fmt_busy(res["busy"]),
+              file=out, flush=True)
+    return res
 
 
 def _arrays(x):

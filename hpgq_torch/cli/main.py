@@ -123,8 +123,9 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="Batches between checkpoints (0 = off)")
     p.add_argument("--profile-dir", default=None,
-                   help="Not ported to hpgq_torch yet (ROADMAP item 16): "
-                        "the run stops with an error")
+                   help="Write a torch.profiler Chrome trace of the run "
+                        "(stats, filter, edit, prepro; host operators and, "
+                        "on CUDA, the card's kernels) into this directory")
     p.add_argument("--sharded", action="store_true",
                    help="Run as one process of a torch.distributed run, one "
                         "process per card (launch with torchrun, or set "

@@ -44,13 +44,13 @@ from ..pipeline.cgr_run import CgrSession, emit_cgr_outputs, run_cgr
 from ..pipeline.run import (
     _EDIT_COUNTS,
     _batch_reads,
-    _check_ported,
     _coalesced,
     _iter_blocks,
     _iter_blocks_paired,
     _iter_packed,
     _iter_packed_paired,
     _reader_batch,
+    _warn_no_pallas,
     run_edit,
     run_filter,
     run_stats,
@@ -215,6 +215,12 @@ class _RotatingRankCheckpoint:
                 os.unlink(p)
 
 
+def _untraced(opts):
+    """``opts`` without ``--profile-dir``: a ``--sharded`` run takes the
+    flag and writes no trace, as in ``hpgq``."""
+    return dataclasses.replace(opts, profile_dir=None)
+
+
 def _crit_key(crit):
     return None if crit is None else dataclasses.astuple(crit)
 
@@ -235,7 +241,8 @@ def run_stats_sharded(opts: StatsOptions,
     writes the report.  One process with no checkpoint runs the ordinary
     pipeline; under a checkpoint it keeps the sharded checkpoint's
     format."""
-    _check_ported(opts, "stats")
+    _warn_no_pallas(opts)
+    opts = _untraced(opts)
     timers = timers or StageTimers()
     pg = initialize_distributed(device)
     if pg.world_size == 1 and not opts.checkpoint_path:
@@ -372,7 +379,7 @@ def run_cgr_sharded(opts, timers: Optional[StageTimers] = None,
     rank 0 writes the PGM and ``.gs`` files.  Every rank returns the
     tables and the word count.  One process with no checkpoint runs the
     ordinary pipeline, as :func:`run_stats_sharded`."""
-    _check_ported(opts, "cgr")
+    _warn_no_pallas(opts)
     timers = timers or StageTimers()
     pg = initialize_distributed(device)
     if pg.world_size == 1 and not opts.checkpoint_path:
@@ -530,6 +537,7 @@ def run_filter_sharded(opts, timers: Optional[StageTimers] = None,
                        device="cuda") -> dict:
     """`filter` over every rank; at world size 1 the ordinary pipeline.
     The outputs are byte-equal to one process's."""
+    opts = _untraced(opts)
     timers = timers or StageTimers()
     pg = initialize_distributed(device)
     if pg.world_size == 1:
@@ -542,6 +550,7 @@ def run_edit_sharded(opts, timers: Optional[StageTimers] = None,
                      device="cuda") -> dict:
     """`edit` (and `prepro`, an edit with its own names) over every rank,
     as :func:`run_filter_sharded`."""
+    opts = _untraced(opts)
     timers = timers or StageTimers()
     pg = initialize_distributed(device)
     if pg.world_size == 1:

@@ -48,11 +48,11 @@ from ..utils.checkpoint import (
 from ..utils.timers import StageTimers
 from .run import (
     _batch_reads,
-    _check_ported,
     _count,
     _iter_blocks,
     _iter_with,
     _reader_batch,
+    _warn_no_pallas,
 )
 from .session import batch_rows, thread_stream, to_device
 
@@ -134,7 +134,7 @@ def run_cgr(opts: CgrOptions, timers: Optional[StageTimers] = None,
     count, the PGM paths and, against a reference signature, the diff
     statistics."""
     dev = resolve_device(device)
-    _check_ported(opts, "cgr")
+    _warn_no_pallas(opts)  # --profile-dir is taken and writes no trace
     timers = timers or StageTimers()
     if opts.sharded:
         from ..dist.run_dist import run_cgr_sharded

@@ -22,8 +22,9 @@ the way:
 Paired-end: mates stream in lockstep, and a pair counts (stats with a
 filter) or passes (filter, edit's post-filter) only when both mates pass.
 ``--sharded`` runs go through :mod:`hpgq_torch.dist.run_dist`, which runs
-these pipelines on each rank's part of the input; ``--profile-dir`` raises
-``NotImplementedError`` naming its ROADMAP item.
+these pipelines on each rank's part of the input.  ``--profile-dir`` wraps
+a ``torch.profiler`` trace around the streaming loop of `stats`, `filter`
+and `edit` (:class:`_Profiler`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import json
 import logging
 import os
 import shutil
+import tempfile
 import threading
 from typing import Optional
 
@@ -324,8 +326,7 @@ def _report_pair(c1, c2, opts, timers) -> None:
                                              in_filename=opts.in_filename2))
 
 
-def _run_stats_parallel(opts, timers, crit, br, nshards: int, device,
-                        report: bool = True):
+def _run_stats_parallel(opts, timers, crit, br, nshards: int, device):
     """Single-end stats over ``nshards`` concurrent byte-range readers,
     each with its own session (and CUDA stream); host counters merge in
     shard order, so every integer field is deterministic."""
@@ -354,13 +355,10 @@ def _run_stats_parallel(opts, timers, crit, br, nshards: int, device,
     for res, t in results:
         timers.merge_from(t)
         counters = res if counters is None else counters.merge(res)
-    if report:
-        with timers.stage("reporting"):
-            stats_report(counters, opts)
     return counters
 
 
-def _run_stats_parallel_paired(opts, timers, device, report: bool = True):
+def _run_stats_parallel_paired(opts, timers, device):
     """Paired stats over concurrent shard pairs that cover the same record
     indices in both mates (``split_paired_ranges``): each shard thread runs
     the serial paired loop on its own CUDA stream, counters merge in shard
@@ -370,7 +368,7 @@ def _run_stats_parallel_paired(opts, timers, device, report: bool = True):
         local.input_range, local.input_range2 = rp
         t = StageTimers()
         with _stream_ctx(device):
-            return run_stats(local, t, report=False, device=device), t
+            return _stream_stats(local, t, device), t
 
     results, err = _in_threads(
         work, split_paired_ranges(opts.in_filename, opts.in_filename2,
@@ -383,20 +381,69 @@ def _run_stats_parallel_paired(opts, timers, device, report: bool = True):
         timers.merge_from(t)
         c1 = r1 if c1 is None else c1.merge(r1)
         c2 = r2 if c2 is None else c2.merge(r2)
-    if report:
-        _report_pair(c1, c2, opts, timers)
     return c1, c2
 
 
-def _check_ported(opts, command: str) -> None:
-    if getattr(opts, "profile_dir", None):
-        raise NotImplementedError(
-            "hpgq_torch %s: --profile-dir is not ported yet (ROADMAP.md "
-            "queue 1 item 16); use hpgq for it" % command)
+def _warn_no_pallas(opts) -> None:
+    """``--no-pallas`` is accepted for ``hpgq``'s command lines and changes
+    nothing here."""
     if not getattr(opts, "use_pallas", True):
         logging.getLogger("hpgq").warning(
             "--no-pallas has no effect in hpgq_torch: CUDA runs the K1/K2 "
             "kernels, the CPU their plain twin")
+
+
+class _Profiler:
+    """A ``torch.profiler`` trace around a command's streaming loop
+    (``--profile-dir``; the counterpart of ``hpgq/pipeline/run.py:
+    320-337``): the host's operators of every thread of the run (the shard
+    readers and pools too, where this torch can trace other threads) and,
+    on CUDA, the card's kernels and copies.  On exit it writes one Chrome
+    trace, ``<dir>/hpgq_torch.<pid>.<random>.pt.trace.json``, named so
+    that runs writing into one directory at once cannot clash.  Shapes,
+    stacks and memory are not recorded: one pass over a million reads
+    makes tens of thousands of events already."""
+
+    def __init__(self, profile_dir, device):
+        self.dir = profile_dir
+        self.device = device
+        self.prof = None
+
+    def __enter__(self):
+        if self.dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=activities,
+                                experimental_config=_all_threads())
+            self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(*exc)
+        os.makedirs(self.dir, exist_ok=True)
+        fd, path = tempfile.mkstemp(prefix="hpgq_torch.%d." % os.getpid(),
+                                    suffix=".pt.trace.json", dir=self.dir)
+        os.close(fd)
+        self.prof.export_chrome_trace(path)
+
+
+def _all_threads():
+    """Kineto's ``profile_all_threads`` setting, or None where this torch
+    has no such setting (its trace then holds the host operators of the
+    calling thread only)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
 
 
 def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
@@ -405,18 +452,29 @@ def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
     merged :class:`~hpgq_torch.core.counters.StatsCounters`, a
     ``(counters1, counters2)`` pair for paired input."""
     dev = resolve_device(device)
-    _check_ported(opts, "stats")
+    _warn_no_pallas(opts)
     timers = timers or StageTimers()
+    with _Profiler(opts.profile_dir, dev):
+        counters = _stream_stats(opts, timers, dev)
+    if report and opts.paired_end:
+        _report_pair(*counters, opts, timers)
+    elif report:
+        with timers.stage("reporting"):
+            stats_report(counters, opts)
+    return counters
+
+
+def _stream_stats(opts, timers, dev):
+    """The counters of `stats` (a pair for paired input), no report."""
     crit = opts.criteria if opts.filter_on else None
     br = _batch_reads(opts, dev)
     if opts.paired_end:
         if _output_parallel_eligible(opts, dev):
-            return _run_stats_parallel_paired(opts, timers, dev,
-                                              report=report)
-        return _run_stats_paired(opts, timers, crit, br, dev, report)
+            return _run_stats_parallel_paired(opts, timers, dev)
+        return _run_stats_paired(opts, timers, crit, br, dev)
     if _output_parallel_eligible(opts, dev):
         return _run_stats_parallel(opts, timers, crit, br, _read_shards(),
-                                   dev, report=report)
+                                   dev)
 
     ck_path = opts.checkpoint_path
     ck_every = opts.checkpoint_every or 50
@@ -455,13 +513,10 @@ def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
         counters = sess.finish()
     if ck_path and os.path.exists(ck_path):
         os.unlink(ck_path)  # run completed; a stale resume would re-read
-    if report:
-        with timers.stage("reporting"):
-            stats_report(counters, opts)
     return counters
 
 
-def _run_stats_paired(opts, timers, crit, br, dev, report: bool):
+def _run_stats_paired(opts, timers, crit, br, dev):
     """The serial paired branch of `stats` (``hpgq/pipeline/run.py:
     532-602``): both mates' steps per batch, the checkpoint key of
     ``hpgq``, and the pair tallies copied into both counters."""
@@ -513,8 +568,6 @@ def _run_stats_paired(opts, timers, crit, br, dev, report: bool):
     for c in (c1, c2):
         c.filter_on = crit is not None
         c.num_passed, c.num_failed = sess.num_passed, sess.num_failed
-    if report:
-        _report_pair(c1, c2, opts, timers)
     return c1, c2
 
 
@@ -546,8 +599,9 @@ def _pid_alive(pid: int) -> bool:
 def _run_output_parallel(opts, timers, runner, count_keys, device):
     """An output command over concurrent record-aligned shards (range
     pairs for paired input): each shard thread runs the serial pipeline
-    into a private ``.pshardNNNN`` dir, and the final files are the shard
-    files concatenated in shard order, byte-identical to a serial run."""
+    (``runner(opts, timers, device)``) into a private ``.pshardNNNN`` dir,
+    and the final files are the shard files concatenated in shard order,
+    byte-identical to a serial run."""
     nshards = _read_shards()
     if opts.paired_end:
         ranges = split_paired_ranges(opts.in_filename, opts.in_filename2,
@@ -576,7 +630,7 @@ def _run_output_parallel(opts, timers, runner, count_keys, device):
         local.out_dirname = sd
         local.input_range, local.input_range2 = rng
         t = StageTimers()
-        return runner(local, t, device=device), t, sd
+        return runner(local, t, device), t, sd
 
     results, err = _in_threads(work, ranges, "hpgq-torch-oshard")
     if err is not None:
@@ -618,10 +672,14 @@ def run_filter(opts: FilterOptions, timers: Optional[StageTimers] = None,
     only when both mates do; ``opts.out_names`` overrides the names).
     Returns the counts and the output paths."""
     dev = resolve_device(device)
-    _check_ported(opts, "filter")
-    timers = timers or StageTimers()
+    _warn_no_pallas(opts)
+    with _Profiler(opts.profile_dir, dev):
+        return _filter(opts, timers or StageTimers(), dev)
+
+
+def _filter(opts, timers, dev):
     if _output_parallel_eligible(opts, dev):
-        return _run_output_parallel(opts, timers, run_filter,
+        return _run_output_parallel(opts, timers, _filter,
                                     ("num_passed", "num_failed"), dev)
     crit = opts.criteria
     phred = opts.quality_encoding_value
@@ -844,10 +902,14 @@ def run_edit(opts: EditOptions, timers: Optional[StageTimers] = None,
     edit names (`prepro` writes ``<input>.valid``).  Returns the counts
     and the output paths."""
     dev = resolve_device(device)
-    _check_ported(opts, opts.command_name or "edit")
-    timers = timers or StageTimers()
+    _warn_no_pallas(opts)
+    with _Profiler(opts.profile_dir, dev):
+        return _edit(opts, timers or StageTimers(), dev)
+
+
+def _edit(opts, timers, dev):
     if _output_parallel_eligible(opts, dev):
-        return _run_output_parallel(opts, timers, run_edit, _EDIT_COUNTS, dev)
+        return _run_output_parallel(opts, timers, _edit, _EDIT_COUNTS, dev)
     br = _batch_reads(opts, dev)
     out = {k: 0 for k in _EDIT_COUNTS}
     if opts.paired_end:

@@ -1,4 +1,5 @@
-"""The port's legacy single-binary invocations against ``hpgq``'s.
+"""The port's legacy single-binary invocations against ``hpgq``'s, and
+its ``--profile-dir``.
 
 Mirrors of ``tests/test_cli.py:701-988``: each legacy command line (action
 flags such as ``--qc``, ``--filter``, ``--prep`` and ``--cg`` with no
@@ -8,10 +9,14 @@ the port's with ``--device cpu``, each into its own output directory: the
 exit codes and the console output must be the same (after the directory's
 name), and every output file byte-equal, stats reports with their ``Mean
 quality`` line to 1e-3 relative (``tests/test_torch_pipeline.py``).
+
+``--profile-dir``: each command that writes a trace writes one
+non-empty Chrome trace and the same console and bytes as without it.
 """
 
 import contextlib
 import io
+import json
 import os
 
 import pytest
@@ -248,3 +253,52 @@ def test_legacy_qc_with_filter_aliases_and_eq_form(tmp_path):
     with open(os.path.join(d, "lq.fq.summary.txt")) as f:
         summary = f.read()
     assert "Filter" in summary and "18" in summary and "45" in summary
+
+
+PROFILED = {  # command lines of every command that writes a trace
+    "stats": ["stats", "--read-quality-range", "20,40", "--max-N", "2",
+              "--kmers"],
+    "stats-paired": ["stats", "--read-quality-range", "20,40", "--max-N",
+                     "2"],
+    "filter": ["filter", "--read-quality-range", "20,40", "--max-N", "2"],
+    "edit": ["edit", "--left-length", "8", "--left-quality-range", "28,60",
+             "--read-quality-range", "20,45"],
+}
+
+
+@pytest.mark.parametrize("case", list(PROFILED))
+def test_profile_dir_writes_one_trace(tmp_path, case):
+    """``--profile-dir D`` on the CPU: one non-empty Chrome trace in ``D``
+    (``hpgq_torch.<pid>.<random>.pt.trace.json``), and the console and
+    every output file byte-equal to the same run without the flag."""
+    m1 = _fastq(tmp_path, "m1.fq", n=600, min_len=40, max_len=120,
+                n_prob=0.02, seed=31)
+    inputs = ["-f", m1]
+    if case.endswith("paired"):
+        inputs = ["--fq1", m1, "--fq2", _fastq(
+            tmp_path, "m2.fq", n=600, min_len=40, max_len=120, n_prob=0.02,
+            seed=32)]
+    prof = str(tmp_path / "prof")
+    runs = {}
+    for label, extra in (("plain", []), ("profiled", ["--profile-dir",
+                                                      prof])):
+        out = str(tmp_path / label)
+        os.makedirs(out)
+        rc, console, _ = _run(port_main, PROFILED[case] + inputs + [
+            "-o", out, "--batch-size", "150", "--device", "cpu",
+            "--log-file", str(tmp_path / "log")] + extra)
+        assert rc == 0, (label, console)
+        files = {}
+        for name in _tree(out):
+            with open(os.path.join(out, name), "rb") as f:
+                files[name] = _normalize(f.read(), out)
+        runs[label] = (console.replace(out, "<OUTDIR>"), files)
+    assert runs["plain"][1], "no output written"
+    assert runs["profiled"] == runs["plain"]
+    traces = os.listdir(prof)
+    assert len(traces) == 1 and traces[0].startswith(
+        "hpgq_torch.%d." % os.getpid()), traces
+    assert traces[0].endswith(".pt.trace.json")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(ev.get("ph") == "X" for ev in events), events[:5]

@@ -6,7 +6,8 @@ up a process group: the byte ranges and stripes, ``run_stats_sharded``
 and cgr from the rotating checkpoints, each against ``hpgq``'s
 single-process result on the same seeded input.  Also: the ``--sharded``
 CLI of every command byte-equal to ``hpgq``'s, the backend rule of
-``initialize_distributed`` and ``--profile-dir`` still refused.  The
+``initialize_distributed``, and ``--profile-dir`` taken by ``--sharded``
+and ``cgr`` with no trace written, as in ``hpgq``.  The
 multi-process runs are in ``tests/test_torch_multiproc*.py``.
 
 Tolerance: every integer field and output byte exact; ``acc_quality`` as
@@ -28,6 +29,7 @@ from hpgq.options import StatsOptions as HStatsOptions
 from hpgq_torch.dist import mesh, run_dist
 from hpgq_torch.io.fastq import FastqReader
 from hpgq_torch.options import CgrOptions, StatsOptions
+from hpgq_torch.pipeline.cgr_run import run_cgr
 from hpgq_torch.pipeline import run as prun
 from test_torch_pipeline import _assert_cli_identical
 
@@ -326,11 +328,42 @@ def test_leave_group_destroys_only_the_group_it_made(monkeypatch, tmp_path):
 
 
 def test_profile_dir_still_raises_naming_its_item(tmp_path):
+    """``--profile-dir`` no longer raises: ``--sharded`` (stats, filter)
+    and ``cgr`` take the flag and, as in ``hpgq``, write no trace; the
+    counters, tables and outputs are those of the run without it."""
+    from hpgq_torch.options import FilterOptions
+
     path = str(tmp_path / "p.fq")
-    make_fastq(path, 50, min_len=40, max_len=60, seed=4)
-    o = _opts(StatsOptions, [path], tmp_path, 100, profile_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_dist.run_stats_sharded(o, device="cpu")
+    make_fastq(path, 500, min_len=40, max_len=60, n_prob=0.02, seed=4)
+    prof = str(tmp_path / "prof")
+    got = {}
+    for label, kw in (("plain", {}), ("profiled", dict(profile_dir=prof))):
+        stats = run_dist.run_stats_sharded(
+            _opts(StatsOptions, [path], tmp_path / label, 100, CRIT, **kw),
+            device="cpu")
+        filt = run_dist.run_filter_sharded(
+            _opts(FilterOptions, [path], tmp_path / label, 100, CRIT, **kw),
+            device="cpu")
+        cgr = run_cgr(_opts(CgrOptions, [path], tmp_path / label, 100, k=4,
+                            **kw), device="cpu")
+        cgr_sh = run_dist.run_cgr_sharded(
+            _opts(CgrOptions, [path], tmp_path / label, 100, k=4, **kw),
+            device="cpu")
+        got[label] = (stats, filt, cgr, cgr_sh)
+        assert stats.num_passed > 0 and filt["num_failed"] > 0
+    (s0, f0, c0, d0), (s1, f1, c1, d1) = got["plain"], got["profiled"]
+    assert s1.equals(s0) and (s1.num_passed, s1.num_failed) == (
+        s0.num_passed, s0.num_failed)
+    assert (f1["num_passed"], f1["num_failed"]) == (f0["num_passed"],
+                                                    f0["num_failed"])
+    for name in ("passed.fq", "failed.fq"):
+        assert (tmp_path / "profiled" / name).read_bytes() == (
+            tmp_path / "plain" / name).read_bytes()
+    for a, b in ((c1, c0), (d1, d0)):
+        assert a["fq_word_count"] == b["fq_word_count"]
+        np.testing.assert_array_equal(a["table_seq"], b["table_seq"])
+        np.testing.assert_array_equal(a["table_q"], b["table_q"])
+    assert not os.path.exists(prof)
 
 
 CLI_CASES = {

@@ -393,7 +393,8 @@ def imported(py):
             yield node.args[0].value
 
 
-sources = [os.path.join(repo, "chip_smoke.py")]
+sources = [os.path.join(repo, f) for f in ("chip_smoke.py", "bench_torch.py",
+                                          "tools/fuzz_torch.py")]
 for root, _, files in os.walk(os.path.join(repo, "hpgq_torch")):
     sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
 named = {(os.path.relpath(py, repo), m) for py in sources
@@ -494,6 +495,17 @@ res2 = chip_smoke.sharded_ranks(((path, records), (m2, rec2),
                                  (lpath, lrec)),
                                 os.path.join(outdir, "w2"), "cpu", outdir)
 assert len(res2) == 7, sorted(res2)
+# phase 14 small: gzip and BGZF input, cgr over gzip, filter over BGZF, the
+# coalesced run and the profiled runs; phase 15 small: fuzz rounds
+iruns = chip_smoke.input_runs(path, records, outdir, "cpu",
+                              n_coalesced=25000)
+assert iruns["coalesced stats"][2] == (3, 1), iruns["coalesced stats"]
+assert iruns["stats, profiled"][2]["all"] > 0, iruns["stats, profiled"]
+fz = chip_smoke.fuzz_rounds("cpu", rounds=4, seed=chip_smoke.FUZZ_SEED,
+                            max_n=800)
+assert sorted(c["cmd"] for c, _, _ in fz) == ["cgr", "edit", "filter",
+                                              "stats"]
+import bench_torch, fuzz_torch
 print("ok", len(names))
 """
 
@@ -511,7 +523,9 @@ def test_imports_load_no_jax(tmp_path):
     checks (phase 12), the long-read window run and paired long reads
     (phases 8-9) and its ``--sharded`` and legacy CLI checks (phase 13:
     world size 1 with and without the launcher's variables, two ranks
-    over gloo) run small on the CPU."""
+    over gloo), its gzip, BGZF, coalesced and profiled runs (phase 14) and
+    fuzz rounds (phase 15) run small on the CPU; ``bench_torch.py`` and
+    ``tools/fuzz_torch.py`` are walked and loaded too."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, REPO, str(tmp_path / "in.fq"),
          str(tmp_path)], capture_output=True, text=True, cwd=str(tmp_path),
