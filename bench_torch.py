@@ -27,7 +27,8 @@ and each line runs the port's production path:
   K1's 2u entry over the corpus' first batch, already on the card, timed
   with CUDA events over many launches;
 * ``scaling_efficiency``: ``stats --sharded`` + ``CRIT`` over
-  ``torch.distributed`` (gloo), one rank per card, at world size 1 and at
+  ``torch.distributed`` (gloo), one rank per card started by the port's
+  launcher (``hpgq_torch.dist.launch``), at world size 1 and at
   ``min(--ranks, cards)``; ``rate_N / (N * rate_1)``, "not measured" on one
   card (two ranks on one card say nothing about scaling over cards).
 
@@ -74,7 +75,6 @@ import os
 import shutil
 import signal
 import statistics
-import subprocess
 import sys
 import tempfile
 import threading
@@ -491,7 +491,6 @@ class Bench:
         self.phase_s = {}
         self.cur = None
         self.headline = None
-        self.procs = []
         self.tmps = []
         self.lock = threading.RLock()
         self.bailed = False
@@ -539,9 +538,6 @@ class Bench:
             if self.bailed:
                 os._exit(0)
             self.bailed = True
-            for p in self.procs:
-                with contextlib.suppress(OSError):
-                    p.kill()
             with contextlib.suppress(OSError, ValueError):
                 sys.stdout.write("\n")  # closes a line cut by the signal
             if self.cur is not None:
@@ -752,87 +748,57 @@ def modes(b: Bench, path, which):
 
 # ------------------------------------------------------------ scaling
 
-def rank_worker(job_file):
-    """One rank of the scaling line: joins the gloo group over the job's
-    ``file://`` rendezvous, runs one warm-up and one timed ``stats
-    --sharded`` pass with ``CRIT``, dumps the counters and prints one
-    ``RESULT`` line."""
-    import torch.distributed as dist
-
+def rank_pass(job):
+    """One rank of the scaling line, a target of the port's launcher
+    (``hpgq_torch.dist.launch``): one warm-up and one timed ``stats
+    --sharded`` pass with ``CRIT``; dumps its counters and the timed
+    pass's seconds."""
     from hpgq_torch.dist import mesh
     from hpgq_torch.dist.run_dist import run_stats_sharded
     from hpgq_torch.options import StatsOptions
     from hpgq_torch.utils.checkpoint import save_counters_checkpoint
 
-    with open(job_file) as f:
-        job = json.load(f)
-    rank = int(os.environ["RANK"])
-    dist.init_process_group("gloo", init_method="file://" + job["init"],
-                            rank=rank,
-                            world_size=int(os.environ["WORLD_SIZE"]),
-                            timeout=mesh.TIMEOUT)
-    try:
-        pg = mesh.initialize_distributed(job["device"])
-        out = os.path.join(job["dir"], "out.rank%d" % rank)
-        os.makedirs(out, exist_ok=True)
-        opts = _options(StatsOptions, job["path"], out, job["batch_size"],
-                        CRIT, sharded=True)
-        secs = []
-        for _ in range(2):  # a warm-up pass, then the timed one
-            mesh.barrier(pg)
-            t0 = time.perf_counter()
-            c = run_stats_sharded(opts, device=pg.device)
-            sync(pg.device)
-            secs.append(time.perf_counter() - t0)
-        save_counters_checkpoint(os.path.join(job["dir"], "c.rank%d.npz"
-                                              % rank), c, 0, "dump")
-        print("RESULT " + json.dumps({"rank": rank, "world": pg.world_size,
-                                      "device": str(pg.device),
-                                      "secs": secs[-1]}), flush=True)
-    finally:
-        dist.destroy_process_group()
+    pg = mesh.initialize_distributed(job["device"])
+    out = os.path.join(job["dir"], "out.rank%d" % pg.rank)
+    os.makedirs(out, exist_ok=True)
+    opts = _options(StatsOptions, job["path"], out, job["batch_size"], CRIT,
+                    sharded=True)
+    secs = []
+    for _ in range(2):  # a warm-up pass, then the timed one
+        mesh.barrier(pg)
+        t0 = time.perf_counter()
+        c = run_stats_sharded(opts, device=pg.device)
+        sync(pg.device)
+        secs.append(time.perf_counter() - t0)
+    dump = os.path.join(job["dir"], "c.rank%d" % pg.rank)
+    save_counters_checkpoint(dump + ".npz", c, 0, "dump")
+    with open(dump + ".json", "w") as f:
+        json.dump({"rank": pg.rank, "world": pg.world_size,
+                   "device": str(pg.device), "secs": secs[-1]}, f)
 
 
-def run_ranks(b: Bench, world, path, want, timeout):
-    """``world`` rank processes of :func:`rank_worker`; every rank's
-    counters must equal the oracle's ``want``.  Returns reads/s of the
-    timed pass (the slowest rank's seconds)."""
+def run_ranks(b: Bench, world, path, want):
+    """``world`` ranks of :func:`rank_pass`, started by the port's
+    launcher (one per card on CUDA, all on the CPU otherwise; they die
+    with this process, so the truncation guard leaves none behind); every
+    rank's counters must equal the oracle's ``want``.  Returns reads/s of
+    the timed pass (the slowest rank's seconds)."""
+    from hpgq_torch.dist.launch import launch
     from hpgq_torch.utils.checkpoint import load_counters_checkpoint
 
     work = b.mktmp()
-    job = os.path.join(work, "job.json")
-    with open(job, "w") as f:
-        json.dump({"device": b.dev.type, "dir": work, "path": path,
-                   "batch_size": b.args.batch_size,
-                   "init": os.path.join(work, "pg")}, f)
-    env = dict(os.environ, WORLD_SIZE=str(world),
-               LOCAL_WORLD_SIZE=str(world))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank-worker", job],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    b.procs += procs
+    devices = (["cuda:%d" % r for r in range(world)] if b.dev.type == "cuda"
+               else ["cpu"] * world)
+    launch(rank_pass, ({"device": b.dev.type, "dir": work, "path": path,
+                        "batch_size": b.args.batch_size},), devices)
     secs = []
-    try:
-        for r, p in enumerate(procs):
-            out, err = p.communicate(timeout=timeout)
-            if p.returncode != 0:
-                raise RuntimeError("rank %d exited %d: %s"
-                                   % (r, p.returncode, err[-2000:]))
-            res = [json.loads(x[len("RESULT "):]) for x in out.splitlines()
-                   if x.startswith("RESULT ")]
-            secs.append(res[0]["secs"])
-            c, _, _ = load_counters_checkpoint(
-                os.path.join(work, "c.rank%d.npz" % r), "dump")
-            check_counters(c, want, "stats --sharded, world size %d, rank %d"
-                           % (world, r))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            b.procs.remove(p)
+    for r in range(world):
+        dump = os.path.join(work, "c.rank%d" % r)
+        with open(dump + ".json") as f:
+            secs.append(json.load(f)["secs"])
+        c, _, _ = load_counters_checkpoint(dump + ".npz", "dump")
+        check_counters(c, want, "stats --sharded, world size %d, rank %d"
+                       % (world, r))
     return want.num_passed + want.num_failed, max(secs)
 
 
@@ -843,15 +809,14 @@ def scaling(b: Bench, path, want):
 
     n_cards = torch.cuda.device_count() if b.dev.type == "cuda" else None
     world = min(b.args.ranks, n_cards) if n_cards else b.args.ranks
-    timeout = max(60.0, b.left())
-    n, s1 = run_ranks(b, 1, path, want, timeout)
+    n, s1 = run_ranks(b, 1, path, want)
     rates = {"1": round(n / s1, 1)}
     line = {"metric": "scaling_efficiency", "value": "not measured",
             "unit": "fraction@%dx" % world, "world_sizes": rates,
             "backend": b.backend, "card": b.card, "cards": n_cards,
             "mode": "stats --sharded + CRIT, one rank per card, gloo"}
     if world > 1:
-        n, sn = run_ranks(b, world, path, want, timeout)
+        n, sn = run_ranks(b, world, path, want)
         rates[str(world)] = round(n / sn, 1)
         line["value"] = round(s1 / (world * sn), 4)
     else:
@@ -917,13 +882,8 @@ def main(argv=None):
     ap.add_argument("--ranks", type=int, default=4,
                     help="ranks of the scaling line's second run (capped at "
                          "the cards on cuda; default 4)")
-    ap.add_argument("--rank-worker", metavar="JOB", default=None,
-                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     os.environ.setdefault("HPGQ_CHARTS", "gnuplot")  # bench.py:41-48
-    if args.rank_worker:
-        rank_worker(args.rank_worker)
-        return 0
     from hpgq_torch.device import resolve_device
 
     b = Bench(args, resolve_device(args.device))

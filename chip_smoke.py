@@ -86,21 +86,27 @@ Phases, each printing its own lines:
     and on the poly-A batch whose quality cell passes 2^31, exact.  Reads/s
     of three warm passes, and the device ms per batch of one profiled pass.
 13. ``--sharded``: ``hpgq_torch.stats(..., sharded=True)`` with the bench
-    filter over phase 4's corpus at world size 1, in this process with no
-    launcher (no process group) and in one subprocess with torch's launcher
-    variables (a gloo group of one over ``env://``); the legacy ``python -m
-    hpgq_torch --qc --filter`` run, whose ``.valid``/``.invalid`` files equal phase 10's
-    selection and whose two summaries equal the reports of the reference
-    over each; then two ranks sharing the card, each a subprocess of this
-    script (``--rank-worker``) in a gloo group made over ``file://``:
-    ``stats``, paired
-    ``stats`` (phase 9's pairs), long-read ``stats`` (phase 8's, K2),
-    ``filter`` and ``edit`` (the CLI, concatenated outputs byte-equal to
-    the reference's), ``cgr`` k=7 (tables, PGM and ``.gs``); both ranks
-    equal, rank 0 alone writes the reports.  Reads/s of one warm world-1
-    and one world-2 pass.  ``--ranks N`` runs N ranks instead of two: on
-    a machine with N cards each rank has its own (``--phases 13 --ranks 4``
-    on four cards).
+    filter over phase 4's corpus at world size 1: in this process with no
+    launcher (no process group), in one subprocess with torch's launcher
+    variables (a gloo group of one over ``env://``), and as one rank
+    started by the port's launcher, ``hpgq_torch.dist.launch`` (a first
+    and a warm pass); the legacy ``python -m hpgq_torch --qc --filter``
+    run, whose ``.valid``/``.invalid`` files equal phase 10's selection
+    and whose two summaries equal the reports of the reference over each;
+    ``python -m hpgq_torch stats --sharded`` with no launcher variables,
+    which must log one process on one card (a rank per card on several)
+    and write the reference's report; then ranks started by the launcher
+    (two sharing the card, one per card on several), each a new
+    interpreter that imports this script first (which blocks jax and
+    ``hpgq`` there): ``stats``, paired ``stats`` (phase 9's pairs),
+    long-read ``stats`` (phase 8's, K2), ``filter`` and ``edit`` (the CLI,
+    concatenated outputs byte-equal to the reference's), ``cgr`` k=7
+    (tables, PGM and ``.gs``); every rank equal, rank 0 alone writes the
+    reports; and a launch whose rank 1 raises, whose parent must exit
+    non-zero within 60 s with no rank left.  Reads/s of one warm pass at
+    world size 1 (in this process and through the launcher) and at the
+    ranks', and the seconds from each launch to its first batch.
+    ``--ranks N`` runs N ranks, round-robin over the cards.
 14. Inputs: phase 4's corpus as plain gzip and as BGZF, ``stats`` with the
     bench filter over each (counters equal to the reference, every report
     file equal to the plain input's but where it names the input), ``cgr``
@@ -151,6 +157,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BLOCKED = ("jax", "jaxlib", "hpgq")  # the port needs none of them
+if __name__ == "__mp_main__":
+    # a rank that hpgq_torch.dist.launch started (spawn imports this script
+    # under that name before the rank's target): block them there too
+    for _name in BLOCKED:
+        sys.modules[_name] = None
 TILE = 64  # rows per K1 block, for the ragged shapes
 
 INT_KEYS = ("num_reads", "acc_length", "min_length", "max_length",
@@ -1445,133 +1456,188 @@ def _argv(kw):
             "--max-N", str(kw["max_N"])]
 
 
-def rank_worker(job_file):
-    """One rank of phase 13, started with torch's launcher variables
-    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and ``MASTER_ADDR`` and
-    ``MASTER_PORT`` where the job names no ``file://`` rendezvous, whose
-    group the rank then makes itself) and ``--rank-worker JOB``: each run of
-    the job through the port's entry points with ``sharded=True`` (the API
-    for ``stats`` and ``cgr``, the CLI for ``filter`` and ``edit``); prints
-    one ``RESULT {...}`` line per run and dumps counters and tables for the
-    parent to check."""
+def rank_job(job):
+    """One rank of phase 13: the target that ``hpgq_torch.dist.launch``
+    runs in each rank it starts, and the body of ``--rank-worker`` (one
+    process with torch's launcher variables: the torchrun route).  Each
+    run of the job goes through the port's entry points with
+    ``sharded=True`` (the API for ``stats`` and ``cgr``, the CLI for
+    ``filter`` and ``edit``); per run, each rank writes
+    ``<run>.rank<r>.json`` (its device, the world size, the launches, the
+    tiers, the seconds, the wall-clock time of its first stats batch,
+    whether jax or ``hpgq`` is loaded) and dumps its counters or tables
+    for the parent to check."""
+    for name in BLOCKED:  # a rank of launch() blocked them on import too
+        sys.modules[name] = None
     import contextlib
 
     import torch
-    import torch.distributed as dist
 
     import hpgq_torch
     from hpgq_torch.cli.main import main as cli
     from hpgq_torch.dist import mesh
     from hpgq_torch.kernels import step
+    from hpgq_torch.pipeline import session
     from hpgq_torch.utils.checkpoint import save_counters_checkpoint
 
-    with open(job_file) as f:
-        job = json.load(f)
     device = job["device"]
-    if job["init"]:
-        dist.init_process_group(
-            "gloo", init_method="file://" + job["init"],
-            rank=int(os.environ["RANK"]),
-            world_size=int(os.environ["WORLD_SIZE"]), timeout=mesh.TIMEOUT)
     pg = mesh.initialize_distributed(device)
+    first = []  # the wall-clock time of this run's first stats batch
+    for cls, name in ((session.StatsSession, "feed_packed"),
+                      (session.PairedStatsSession, "feed_pair_packed")):
+        def timed(self, *a, _real=getattr(cls, name), **k):
+            if not first:
+                first.append(time.time())
+            return _real(self, *a, **k)
+
+        setattr(cls, name, timed)
     for run in job["runs"]:
         out = run["outdir"] if run["kind"] == "cli" else "%s.rank%d" % (
             run["outdir"], pg.rank)  # one dir per rank: rank 0 alone writes
         os.makedirs(out, exist_ok=True)
-        dump = os.path.join(job["dump"], "%s.rank%d.npz" % (run["name"],
-                                                            pg.rank))
+        dump = os.path.join(job["dump"], "%s.rank%d" % (run["name"],
+                                                       pg.rank))
         mesh.barrier(pg)
         reset_counts()
+        first.clear()
         t0 = time.perf_counter()
         if run["kind"] == "stats":
             got = hpgq_torch.stats(*run["paths"], outdir=out, device=device,
                                    sharded=True, **run["kw"])
             c1, c2 = got if isinstance(got, tuple) else (got, None)
-            save_counters_checkpoint(dump, c1, 0, "dump", counters2=c2)
+            save_counters_checkpoint(dump + ".npz", c1, 0, "dump",
+                                     counters2=c2)
         elif run["kind"] == "cgr":
             res = hpgq_torch.cgr(*run["paths"], outdir=out, device=device,
                                  sharded=True, **run["kw"])
-            np.savez(dump, table_seq=res["table_seq"], table_q=res["table_q"],
-                     words=res["fq_word_count"])
+            np.savez(dump + ".npz", table_seq=res["table_seq"],
+                     table_q=res["table_q"], words=res["fq_word_count"])
         else:
             log = os.path.join(job["dump"], "log.rank%d" % pg.rank)
-            with contextlib.redirect_stdout(sys.stderr):
+            with open(log + ".out", "a") as f, contextlib.redirect_stdout(f):
                 rc = cli(run["argv"] + ["-o", out, "--sharded", "--device",
                                         device, "--log-file", log])
             check(rc == 0, "%s: the CLI exited %d" % (run["name"], rc))
-        if device == "cuda":
+        if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         mesh.barrier(pg)
-        print("RESULT " + json.dumps({
-            "name": run["name"], "rank": pg.rank, "world": pg.world_size,
-            "device": str(pg.device), "launches": launch_counts(),
-            "tiers": dict(step.WIRE_BATCHES),
-            "secs": time.perf_counter() - t0}), flush=True)
-    if dist.is_initialized():  # not left to the interpreter's exit
-        dist.destroy_process_group()
+        with open(dump + ".json", "w") as f:
+            json.dump({
+                "name": run["name"], "rank": pg.rank, "world": pg.world_size,
+                "device": str(pg.device), "launches": launch_counts(),
+                "tiers": dict(step.WIRE_BATCHES),
+                "secs": time.perf_counter() - t0,
+                "first_batch": first[0] if first else None,
+                "jax": [n for n in BLOCKED
+                        if sys.modules.get(n) is not None]}, f)
 
 
-def spawn_ranks(world, runs, device, tmp, launcher=False, timeout=600):
-    """Run ``runs`` as ``world`` ranks, each a subprocess of this script
-    (jax and ``hpgq`` blocked there too) that makes its group over a
-    ``file://`` rendezvous in its own directory, so that no two runs race
-    for a TCP port; with ``launcher`` (world size 1 only) the rank gets
-    torch's launcher variables instead and joins over ``env://`` (port 0:
-    a group of one binds whatever port is free).  Returns ``{run name:
-    [result of each rank]}`` with the dumps loaded (``counters``,
-    ``tables``)."""
-    import subprocess
+def rank_worker(job_file):
+    """``--rank-worker JOB``: :func:`rank_job` as one process of torch's
+    launcher route (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` set: a gloo group over ``env://``)."""
+    from hpgq_torch.dist import mesh
 
+    with open(job_file) as f:
+        rank_job(json.load(f))
+    mesh.leave_group()  # not left to the interpreter's exit
+
+
+def _rank_results(work, runs, world):
+    """``{run name: [result of each rank]}`` from the ranks' files, with
+    the dumps loaded (``counters``, ``tables``)."""
     from hpgq_torch.utils.checkpoint import load_counters_checkpoint
 
-    check(world == 1 or not launcher, "env:// with port 0 is for one rank")
+    results = {}
+    for run in runs:
+        ranks = []
+        for r in range(world):
+            path = os.path.join(work, "%s.rank%d" % (run["name"], r))
+            check(os.path.exists(path + ".json"), "%s: rank %d of %d wrote "
+                  "no result" % (run["name"], r, world))
+            with open(path + ".json") as f:
+                res = json.load(f)
+            check(not res["jax"], "%s: rank %d loaded %s" % (
+                run["name"], r, res["jax"]))
+            if run["kind"] == "cgr":
+                with np.load(path + ".npz") as z:
+                    res["tables"] = (z["table_seq"], z["table_q"],
+                                     int(z["words"]))
+            elif run["kind"] == "stats":
+                c1, _, extra = load_counters_checkpoint(path + ".npz", "dump")
+                res["counters"] = (c1, extra.get("__counters2__"))
+            ranks.append(res)
+        results[run["name"]] = ranks
+    return results
+
+
+def rank_devices(world, device="cuda"):
+    """``world`` ranks over the cards, round-robin: one card each when
+    there are as many cards, two sharing ``cuda:0`` on one card (all on
+    the CPU when ``device`` is the CPU)."""
+    import torch
+
+    if device == "cpu":
+        return ["cpu"] * world
+    n = torch.cuda.device_count()
+    return ["cuda:%d" % (r % n) for r in range(world)]
+
+
+def spawn_ranks(devices, runs, tmp, timeout=600):
+    """Run ``runs`` as one rank on each of ``devices``, started by the
+    port's launcher (``hpgq_torch.dist.launch.launch``, the one a user's
+    ``--sharded`` gets): every rank a new interpreter that imports this
+    script first, which blocks jax and ``hpgq`` there.  A run of more than
+    ``timeout`` seconds fails the phase (the launcher stops the ranks).
+    Returns ``{run name: [result of each rank]}``, each with
+    ``launched_at``, the wall-clock time the launch started."""
+    import signal
+
+    from hpgq_torch.dist.launch import launch
+
+    work = tempfile.mkdtemp(dir=tmp)
+    job = {"device": devices[0].split(":")[0], "dump": work, "runs": runs}
+
+    def late(sig, frame):
+        raise SmokeFailure("%d ranks did not finish %s in %d s"
+                           % (len(devices), [r["name"] for r in runs],
+                              timeout))
+
+    old = signal.signal(signal.SIGALRM, late)
+    signal.alarm(timeout)
+    t0 = time.time()
+    try:
+        launch(rank_job, (job,), devices)
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    results = _rank_results(work, runs, len(devices))
+    for ranks in results.values():
+        for r in ranks:
+            r["launched_at"] = t0
+    return results
+
+
+def launcher_variables_rank(runs, device, tmp, timeout=600):
+    """``runs`` in one subprocess with torch's launcher variables (world
+    size 1, ``env://`` on port 0: a group of one binds whatever port is
+    free), the route ``torchrun`` takes.  Returns ``{run name: [its
+    result]}``."""
+    import subprocess
+
     work = tempfile.mkdtemp(dir=tmp)
     job = os.path.join(work, "job.json")
     with open(job, "w") as f:
-        json.dump({"device": device, "dump": work, "runs": runs,
-                   "init": None if launcher else os.path.join(work, "pg")},
-                  f)
-    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
-    if launcher:
-        env.update(MASTER_ADDR="localhost", MASTER_PORT="0")
-    procs = [subprocess.Popen(
+        json.dump({"device": device, "dump": work, "runs": runs}, f)
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT="0")
+    p = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--rank-worker", job],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            check(p.returncode == 0, "rank %d exited %d: %s"
-                  % (len(outs), p.returncode, err[-3000:]))
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    results = {}
-    for out in outs:
-        for line in out.splitlines():
-            if line.startswith("RESULT "):
-                res = json.loads(line[len("RESULT "):])
-                results.setdefault(res["name"], []).append(res)
-    for name, ranks in results.items():
-        check(len(ranks) == world, "%s: %d of %d ranks reported"
-              % (name, len(ranks), world))
-        for res in ranks:
-            dump = os.path.join(work, "%s.rank%d.npz" % (name, res["rank"]))
-            if not os.path.exists(dump):
-                continue
-            if any(r["name"] == name and r["kind"] == "cgr" for r in runs):
-                with np.load(dump) as z:
-                    res["tables"] = (z["table_seq"], z["table_q"],
-                                     int(z["words"]))
-            else:
-                c1, _, extra = load_counters_checkpoint(dump, "dump")
-                res["counters"] = (c1, extra.get("__counters2__"))
-    return results
+        env=env, capture_output=True, text=True, timeout=timeout)
+    check(p.returncode == 0, "the launcher-variable rank exited %d: %s"
+          % (p.returncode, p.stderr[-3000:]))
+    return _rank_results(work, runs, 1)
 
 
 def check_ranks_stats(ranks, want, label):
@@ -1588,10 +1654,10 @@ def check_ranks_stats(ranks, want, label):
 
 def sharded_ranks(corpora, outdir, device, tmp, world=2):
     """``world`` ranks on one host (by default two sharing the card; with
-    as many cards, one each), over gloo: sharded ``stats``,
-    paired ``stats``, long-read ``stats``, ``filter``, ``edit`` and
-    ``cgr`` k=7, each held against the reference; then one timed
-    ``stats`` pass.  Returns the results by run."""
+    as many cards, one each), started by the port's launcher, over gloo:
+    sharded ``stats``, paired ``stats``, long-read ``stats``, ``filter``,
+    ``edit`` and ``cgr`` k=7, each held against the reference; then one
+    timed ``stats`` pass.  Returns the results by run."""
     from hpgq_torch.oracle import (
         fastq_bytes,
         reference_paired_stats,
@@ -1600,6 +1666,7 @@ def sharded_ranks(corpora, outdir, device, tmp, world=2):
     )
 
     (m1, recs1), (m2, recs2), (lpath, lrecs) = corpora
+    devices = rank_devices(world, device)
 
     def d(name):
         return os.path.join(outdir, name)
@@ -1621,11 +1688,14 @@ def sharded_ranks(corpora, outdir, device, tmp, world=2):
         dict(name="stats, warm", kind="stats", paths=[m1], kw=BENCH_FILTER,
              outdir=d("warm")),
     ]
-    res = spawn_ranks(world, runs, device, tmp)
+    res = spawn_ranks(devices, runs, tmp)
     for name, ranks in res.items():
         check({r["world"] for r in ranks} == {world},
               "%s: ranks saw world sizes %s, not %d"
               % (name, [r["world"] for r in ranks], world))
+        check([r["device"] for r in ranks] == devices,
+              "%s: ranks ran on %s, not %s"
+              % (name, [r["device"] for r in ranks], devices))
     check_ranks_stats(res["stats"], cached_reference(
         reference_stats, recs1, **BENCH_FILTER), "sharded stats")
     check_ranks_stats(res["paired"], cached_reference(
@@ -1673,6 +1743,13 @@ def sharded_ranks(corpora, outdir, device, tmp, world=2):
     return res
 
 
+def startup_s(ranks):
+    """Seconds from the launch to the first rank's first stats batch."""
+    firsts = [r["first_batch"] for r in ranks if r["first_batch"]]
+    check(firsts, "no rank timed its first batch")
+    return min(firsts) - ranks[0]["launched_at"]
+
+
 def sharded_world1(m1, recs1, outdir, device, tmp):
     """World size 1: in this process with no launcher (no group), and in
     one subprocess with the launcher's variables (a gloo group of one over
@@ -1687,14 +1764,165 @@ def sharded_world1(m1, recs1, outdir, device, tmp):
                            **BENCH_FILTER)
     launches = launch_counts()
     assert_counters_equal(got, want, "sharded stats, world size 1")
-    (res,) = spawn_ranks(1, [dict(name="stats", kind="stats", paths=[m1],
-                                  kw=BENCH_FILTER,
-                                  outdir=outdir + ".launched")],
-                         device, tmp, launcher=True)["stats"]
+    (res,) = launcher_variables_rank(
+        [dict(name="stats", kind="stats", paths=[m1], kw=BENCH_FILTER,
+              outdir=outdir + ".launched")], device, tmp)["stats"]
     check(res["world"] == 1, "world size 1 with the launcher: the rank saw "
           "world size %d" % res["world"])
     check_ranks_stats([res], want, "sharded stats, launched, world size 1")
     return got, launches, res
+
+
+def launched_world1(m1, recs1, outdir, device, tmp):
+    """One rank started by the port's launcher (on ``cuda:0``): a first
+    ``stats`` pass with the bench filter and a warm one, each equal to the
+    reference.  Returns the results by run."""
+    from hpgq_torch.oracle import reference_stats
+
+    want = cached_reference(reference_stats, recs1, **BENCH_FILTER)
+    run = dict(name="stats", kind="stats", paths=[m1], kw=BENCH_FILTER,
+               outdir=outdir + ".first")
+    (dev,) = rank_devices(1, device)
+    one = spawn_ranks([dev], [run, dict(run, name="stats, warm",
+                                        outdir=outdir + ".warm")], tmp)
+    for name, (r,) in one.items():
+        check(r["world"] == 1 and r["device"] == dev,
+              "%s, one launched rank: world %d on %s" % (name, r["world"],
+                                                         r["device"]))
+        check_ranks_stats([r], want, "sharded stats, one rank started by "
+                          "the launcher, " + name)
+    return one
+
+
+def cli_sharded(m1, recs1, outdir, device):
+    """``python -m hpgq_torch stats --sharded`` with the bench filter, a
+    subprocess with no launcher variables (jax and ``hpgq`` blocked): it
+    starts one rank per card (one process on one card) and says so in its
+    log, and its report equals the reference's.  Returns (the log's line,
+    the seconds)."""
+    import subprocess
+
+    import torch
+
+    from hpgq_torch.core.counters import StatsCounters
+    from hpgq_torch.oracle import COUNTER_ARRAYS, COUNTER_KEYS, reference_stats
+    from hpgq_torch.options import StatsOptions
+    from hpgq_torch.report.stats_report import stats_report
+
+    got_dir, want_dir = outdir + ".cli", outdir + ".want"
+    for d in (got_dir, want_dir):
+        os.makedirs(d)
+    log = os.path.join(outdir + ".cli", "log")
+    argv = (["stats", "-f", m1, "-o", got_dir, "--sharded", "--log-file",
+             log, "--device", device] + _argv(BENCH_FILTER))
+    run = ("import runpy, sys\n"
+           "for n in %r:\n    sys.modules[n] = None\n"
+           "sys.argv = ['hpgq_torch'] + %r\n"
+           "runpy.run_module('hpgq_torch', run_name='__main__')\n"
+           % (BLOCKED, argv))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", run], capture_output=True,
+                       text=True, cwd=REPO, env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    check(p.returncode == 0, "stats --sharded exited %d: %s"
+          % (p.returncode, p.stderr[-3000:]))
+    check(p.stdout.count("RESULTS") == 1, "stats --sharded printed %d "
+          "RESULTS blocks" % p.stdout.count("RESULTS"))
+    with open(log) as f:
+        said = [ln.split("hpgq: ", 1)[1] for ln in f.read().splitlines()
+                if "hpgq: --sharded: " in ln]
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    if device == "cpu":
+        expect = "--sharded: 1 process on cpu: the run is on the cpu"
+    elif cards == 1:
+        expect = "--sharded: 1 process on cuda:0: one visible card"
+    else:
+        expect = "--sharded: %d ranks, one per card: %s" % (
+            cards, ", ".join(rank_devices(cards)))
+    check(said == [expect], "stats --sharded logged %s, not %r"
+          % (said, expect))
+    ref = cached_reference(reference_stats, recs1, **BENCH_FILTER)
+    c = StatsCounters(phred=33)
+    for k in COUNTER_KEYS + ("acc_quality",):
+        setattr(c, k, getattr(ref, k))
+    for k in COUNTER_ARRAYS:
+        setattr(c, k, getattr(ref, k))
+    c.filter_on = True
+    o = StatsOptions(in_filename=m1, out_dirname=want_dir,
+                     read_length_range="%d,%d"
+                     % BENCH_FILTER["read_length_range"],
+                     read_quality_range="%d,%d"
+                     % BENCH_FILTER["read_quality_range"])
+    crit = o.criteria
+    crit.min_read_length, crit.max_read_length = \
+        BENCH_FILTER["read_length_range"]
+    crit.min_read_quality, crit.max_read_quality = \
+        BENCH_FILTER["read_quality_range"]
+    crit.max_N = BENCH_FILTER["max_N"]
+    stats_report(c, o)
+    same_report_set(got_dir, m1, want_dir, m1, "stats --sharded, the CLI")
+    return said[0], secs
+
+
+def failing_rank_job(pid_dir):
+    """Phase 13's failing rank: every rank notes its pid; rank 1 raises,
+    rank 0 waits in a collective for it."""
+    import torch.distributed as dist
+
+    from hpgq_torch.dist import mesh
+
+    with open(os.path.join(pid_dir, "rank%d" % dist.get_rank()), "w") as f:
+        f.write(str(os.getpid()))
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    mesh.barrier(mesh.initialize_distributed("cuda"))
+
+
+def start_failing_rank(tmp, devices):
+    """Start ``--failing-ranks DIR DEVICE...`` in a subprocess: the
+    launcher on ``devices``, whose rank 1 raises.  Returns the function
+    that waits for it and checks that the parent exited non-zero within
+    60 s and left no rank running; it returns the seconds."""
+    import subprocess
+
+    pids = tempfile.mkdtemp(dir=tmp)
+    t0 = time.perf_counter()
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          "--failing-ranks", pids] + devices,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+
+    def finish():
+        try:
+            _, err = p.communicate(
+                timeout=max(1.0, 60 - (time.perf_counter() - t0)))
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        secs = time.perf_counter() - t0
+        check(p.returncode != 0 and "rank 1 fails on purpose" in err,
+              "a failing rank: the parent exited %d: %s"
+              % (p.returncode, err[-2000:]))
+        check(secs < 60, "a failing rank: the parent took %.1f s" % secs)
+        left = []
+        for name in os.listdir(pids):
+            with open(os.path.join(pids, name)) as f:
+                pid = int(f.read())
+            try:
+                with open("/proc/%d/stat" % pid) as f:
+                    if f.read().rsplit(")", 1)[1].split()[0] != "Z":
+                        left.append(pid)
+            except OSError:
+                pass
+        check(os.listdir(pids) and not left, "a failing rank: ranks %s of "
+              "%s still run" % (left, os.listdir(pids)))
+        return secs
+
+    return finish
 
 
 def legacy_qc_filter(m1, recs1, outdir, device):
@@ -1774,30 +2002,41 @@ def same_report(got, want, label):
                   "%s: %r, the reference %r" % (label, a, b))
 
 
-def phase_sharded(tmp, smi, ranks=2):
-    """Phase 13: ``--sharded`` at world size 1 (no launcher, then the
-    launcher's variables), ``ranks`` ranks (two sharing the card), the
-    legacy ``--qc
-    --filter`` run, and the rates of one warm pass at world size 1 and at
-    ``ranks``.  Returns the launches of K1's plain and 2u entries and of
-    K2 on these paths."""
+def phase_sharded(tmp, smi, ranks=None):
+    """Phase 13: ``--sharded`` at world size 1 (no launcher, the
+    launcher's variables, one rank started by the port's launcher),
+    ``ranks`` ranks started by the port's launcher (by default two sharing
+    the card on one card, one per card on several), the legacy ``--qc
+    --filter`` run, ``python -m hpgq_torch stats --sharded`` with no
+    launcher, a failing rank, and the rates of one warm pass at world
+    size 1 and at ``ranks``.  Returns the launches of K1's plain and 2u
+    entries and of K2 on these paths."""
     import torch
 
     import hpgq_torch
 
+    cards = torch.cuda.device_count()
+    world = ranks or (cards if cards > 1 else 2)
     m1, recs1 = bench_corpus(tmp)
     corpora = (bench_corpus(tmp), bench_corpus(tmp, seed=8), long_corpus(tmp))
     t0 = time.perf_counter()
-    got, n1, res = sharded_world1(m1, recs1, tempfile.mkdtemp(dir=tmp),
-                                  "cuda", tmp)
-    check(n1["K1 2u"] > 0 and res["launches"]["K1 2u"] > 0,
+    w1 = tempfile.mkdtemp(dir=tmp)
+    got, n1, res = sharded_world1(m1, recs1, w1, "cuda", tmp)
+    one = launched_world1(m1, recs1, w1, "cuda", tmp)
+    n_one = [one[n][0]["launches"] for n in one]
+    check(n1["K1 2u"] > 0 and res["launches"]["K1 2u"] > 0
+          and all(n["K1 2u"] > 0 for n in n_one),
           "sharded stats at world size 1 launched K1's 2u entry no time "
-          "(%s, launched %s)" % (n1, res["launches"]))
+          "(%s, launched %s, %s)" % (n1, res["launches"], n_one))
     say("sharded", "world size 1, no launcher (no group): launches %s; "
-        "launched (RANK=0 WORLD_SIZE=1, env://): %s, launches %s; "
-        "both == reference (%d passed) in %.1f s"
-        % (n1, res["device"], res["launches"],
-           got.num_passed, time.perf_counter() - t0))
+        "launched (RANK=0 WORLD_SIZE=1, env://): %s, launches %s; one rank "
+        "started by hpgq_torch.dist.launch on %s: launches %s; all == "
+        "reference (%d passed) in %.1f s"
+        % (n1, res["device"], res["launches"], one["stats"][0]["device"],
+           n_one, got.num_passed, time.perf_counter() - t0))
+    # the failing-rank check runs beside the legacy run, which it does not
+    # time
+    failing = start_failing_rank(tmp, rank_devices(2))
     t0 = time.perf_counter()
     n_pass, n_fail = legacy_qc_filter(m1, recs1, tempfile.mkdtemp(dir=tmp),
                                       "cuda")
@@ -1805,35 +2044,46 @@ def phase_sharded(tmp, smi, ranks=2):
         ".invalid (%d) == reference selection, both summaries == the "
         "reference's reports, in %.1f s" % (n_pass, n_fail,
                                            time.perf_counter() - t0))
+    say("sharded", "a rank that raises: the parent exited non-zero in %.1f "
+        "s, no rank left" % failing())
+    said, secs = cli_sharded(m1, recs1, tempfile.mkdtemp(dir=tmp), "cuda")
+    say("sharded", "python -m hpgq_torch stats --sharded, no launcher "
+        "variables, %d card(s): %r; report == reference, in %.1f s"
+        % (cards, said, secs))
     t0 = time.perf_counter()
     res2 = sharded_ranks(corpora, tempfile.mkdtemp(dir=tmp), "cuda", tmp,
-                         ranks)
+                         world)
     for name, by_rank in res2.items():
         say("sharded", "world size %d, %s: gloo, devices %s, "
             "launches by rank %s, %.3f s; == reference" % (
-                ranks, name, [r["device"] for r in by_rank],
+                world, name, [r["device"] for r in by_rank],
                 [r["launches"] for r in by_rank],
                 max(r["secs"] for r in by_rank)))
     say("sharded", "world size %d: seven runs and their checks in %.1f s"
-        % (ranks, time.perf_counter() - t0))
+        % (world, time.perf_counter() - t0))
 
     t0 = time.perf_counter()
     hpgq_torch.stats(m1, outdir=tempfile.mkdtemp(dir=tmp), device="cuda",
                      sharded=True, **BENCH_FILTER)
     torch.cuda.synchronize()
-    w1 = time.perf_counter() - t0
-    w2 = max(r["secs"] for r in res2["stats, warm"])
+    s1 = time.perf_counter() - t0
+    sl = one["stats, warm"][0]["secs"]
+    sn = max(r["secs"] for r in res2["stats, warm"])
     say("sharded", "sharded stats + bench filter, one warm pass: world size "
-        "1 %.0f reads/s (%.3f s), world size %d on %d card(s) %.0f reads/s "
-        "(%.3f s), on %s" % (len(recs1) / w1, w1, ranks,
-                             torch.cuda.device_count(), len(recs1) / w2, w2,
-                             smi))
+        "1 in this process %.0f reads/s (%.3f s); world size 1 through the "
+        "launcher %.0f reads/s (%.3f s); world size %d through the launcher "
+        "on %d card(s) %.0f reads/s (%.3f s); from the launch to the first "
+        "batch: %.2f s at world size 1, %.2f s at world size %d; on %s"
+        % (len(recs1) / s1, s1, len(recs1) / sl, sl, world, cards,
+           len(recs1) / sn, sn, startup_s(one["stats"]),
+           startup_s(res2["stats"]), world, smi))
 
     def total(kernel, *names):
         return sum(r["launches"][kernel] for n in names for r in res2[n])
 
     return (total("K1", "paired"),
-            n1["K1 2u"] + res["launches"]["K1 2u"] + total("K1 2u", "stats"),
+            n1["K1 2u"] + res["launches"]["K1 2u"] + total("K1 2u", "stats")
+            + sum(n["K1 2u"] for n in n_one),
             total("K2", "long reads"))
 
 
@@ -2176,12 +2426,14 @@ def main(argv=None):
                     help="comma-separated phases to run (default 1-5 and "
                          "7-15; 6, the stage breakdown, runs only when "
                          "asked for; the card and the build always run)")
-    ap.add_argument("--ranks", type=int, default=2,
-                    help="ranks of phase 13's multi-rank runs (default 2, "
-                         "sharing the card; as many as the cards for one "
-                         "card each)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks of phase 13's multi-rank runs (default: one "
+                         "per card, or two sharing the card on one card); "
+                         "ranks share the cards round-robin")
     ap.add_argument("--rank-worker", metavar="JOB", default=None,
                     help=argparse.SUPPRESS)  # one rank of phase 13
+    ap.add_argument("--failing-ranks", nargs="+", default=None,
+                    help=argparse.SUPPRESS)  # DIR DEVICE...: phase 13
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     for name in BLOCKED:  # any import of jax or hpgq now fails the run
@@ -2190,6 +2442,13 @@ def main(argv=None):
         sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
         os.environ["HPGQ_CHARTS"] = "off"
         rank_worker(args.rank_worker)
+        return 0
+    if args.failing_ranks:
+        sys.path.insert(0, REPO)
+        from hpgq_torch.dist.launch import launch
+
+        launch(failing_rank_job, (args.failing_ranks[0],),
+               args.failing_ranks[1:])
         return 0
 
     import torch

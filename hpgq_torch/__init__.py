@@ -13,8 +13,9 @@ reads of any length, with and without the inline filter and with
 hpgq_torch <command> ...``, or :func:`hpgq_torch.stats`,
 :func:`~hpgq_torch.filter_reads`, :func:`~hpgq_torch.edit`,
 :func:`~hpgq_torch.prepro`, :func:`~hpgq_torch.cgr`); ``--sharded`` runs
-over ``torch.distributed``, the legacy single-binary flags and
-``--profile-dir``.  The device is explicit: ``"cuda"`` by default,
+over ``torch.distributed``, one rank per local card that the command
+starts itself or one rank of a ``torchrun`` run; the legacy single-binary
+flags and ``--profile-dir``.  The device is explicit: ``"cuda"`` by default,
 ``"cpu"`` only when asked for.
 """
 

@@ -13,7 +13,11 @@
 
 Same signatures as :mod:`hpgq.api`'s ``stats``, ``filter_reads``, ``edit``,
 ``prepro`` and ``cgr``, plus ``device=`` ("cuda" by default, "cpu" when
-asked for; a missing GPU raises).
+asked for; a missing GPU raises), and ``sharded=`` on every command: the
+CLI's ``--sharded``, one rank per local card
+(:func:`hpgq_torch.dist.launch.run_sharded`), or one rank of a
+``torchrun`` run; the call returns what it returns in one process.  A rank
+that fails raises :class:`~hpgq_torch.dist.launch.RankFailed`.
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ from .options import (
     PreproOptions,
     StatsOptions,
 )
-from .dist.run_dist import run_stats_sharded
+from .dist.launch import run_sharded
+from .dist.run_dist import (
+    run_edit_sharded,
+    run_filter_sharded,
+    run_stats_sharded,
+)
 from .pipeline.cgr_run import run_cgr
 from .pipeline.run import run_edit, run_filter, run_stats
 
@@ -103,8 +112,8 @@ def stats(in_path, in_path2=None, outdir=".", *, kmers: bool = False,
     """QC statistics (the `stats` command) on ``device``.  Returns
     :class:`~hpgq_torch.core.counters.StatsCounters` (a pair when paired-end).
     Passing any threshold enables the inline pre-filter.  ``sharded`` runs
-    this process as one rank of a ``torch.distributed`` run
-    (:mod:`hpgq_torch.dist`), or alone when no launcher set one up."""
+    it over every local card, one rank per card, or as one rank of a
+    ``torchrun`` run (:mod:`hpgq_torch.dist`)."""
     dev = resolve_device(device)
     opts = _common(StatsOptions(), in_path, in_path2, outdir, encoding,
                    batch_size, checkpoint, sharded)
@@ -112,7 +121,7 @@ def stats(in_path, in_path2=None, outdir=".", *, kmers: bool = False,
     opts.filter_on = _criteria(opts, read_length_range, read_quality_range,
                                max_N, max_out_of_quality, left, right)
     if sharded:  # single-end and paired alike
-        return run_stats_sharded(opts, report=report, device=dev)
+        return run_sharded(run_stats_sharded, opts, None, dev, report=report)
     return run_stats(opts, report=report, device=dev)
 
 
@@ -123,15 +132,18 @@ def filter_reads(in_path, in_path2=None, outdir=".", *,
                  max_N: Optional[int] = None,
                  max_out_of_quality: Optional[int] = None,
                  left=None, right=None, checkpoint: Optional[str] = None,
-                 device="cuda"):
+                 sharded: bool = False, device="cuda"):
     """Split into passed/failed record files (the `filter` command) on
-    ``device``.  Returns the result dict (counts + output paths)."""
+    ``device``.  Returns the result dict (counts + output paths);
+    ``sharded`` as in :func:`stats`."""
     dev = resolve_device(device)
     opts = _common(FilterOptions(), in_path, in_path2, outdir, encoding,
-                   batch_size, checkpoint, False)
+                   batch_size, checkpoint, sharded)
     if not _criteria(opts, read_length_range, read_quality_range, max_N,
                      max_out_of_quality, left, right):
         raise ValueError("nothing to filter: no filter criteria given")
+    if sharded:
+        return run_sharded(run_filter_sharded, opts, None, dev)
     return run_filter(opts, device=dev)
 
 
@@ -141,13 +153,15 @@ def edit(in_path, in_path2=None, outdir=".", *,
          right_length: Optional[int] = None, right_quality_range: _Range = None,
          filter_after: bool = False, read_length_range: _Range = None,
          read_quality_range: _Range = None, max_N: Optional[int] = None,
-         checkpoint: Optional[str] = None, device="cuda"):
+         checkpoint: Optional[str] = None, sharded: bool = False,
+         device="cuda"):
     """Quality-trim reads (the `edit` command) on ``device``;
     ``filter_after`` applies the remaining criteria to the trimmed reads.
-    Returns the result dict (counts + output paths)."""
+    Returns the result dict (counts + output paths); ``sharded`` as in
+    :func:`stats`."""
     dev = resolve_device(device)
     opts = _common(EditOptions(), in_path, in_path2, outdir, encoding,
-                   batch_size, checkpoint, False)
+                   batch_size, checkpoint, sharded)
     c = opts.criteria
     if left_length is not None:
         c.left_length = int(left_length)
@@ -164,6 +178,8 @@ def edit(in_path, in_path2=None, outdir=".", *,
     if max_N is not None:
         c.max_N = int(max_N)
     opts.filter_on = bool(filter_after)
+    if sharded:
+        return run_sharded(run_edit_sharded, opts, None, dev)
     return run_edit(opts, device=dev)
 
 
@@ -171,19 +187,22 @@ def prepro(in_path, in_path2=None, outdir=".", *,
            encoding: str = "phred33", batch_size: int = 10000,
            ltrim_nts: int = 0, rtrim_nts: int = 0,
            min_quality: int = 20, max_quality: int = 60,
-           checkpoint: Optional[str] = None, device="cuda"):
+           checkpoint: Optional[str] = None, sharded: bool = False,
+           device="cuda"):
     """Legacy preprocessing (the `prepro` command) on ``device``: trim the
     first/last nucleotides when the window's mean quality is outside
     ``[min_quality, max_quality]``; writes ``<input>.valid`` file(s).
-    Returns the result dict."""
+    Returns the result dict; ``sharded`` as in :func:`stats`."""
     dev = resolve_device(device)
     opts = _common(PreproOptions(), in_path, in_path2, outdir, encoding,
-                   batch_size, checkpoint, False)
+                   batch_size, checkpoint, sharded)
     opts.min_quality, opts.max_quality = int(min_quality), int(max_quality)
     opts.ltrim_nts, opts.rtrim_nts = int(ltrim_nts), int(rtrim_nts)
     if opts.ltrim_nts <= 0 and opts.rtrim_nts <= 0:
         raise ValueError("nothing to preprocess: ltrim_nts/rtrim_nts are 0")
     opts.apply_trim_windows()
+    if sharded:
+        return run_sharded(run_edit_sharded, opts, None, dev)
     return run_edit(opts, device=dev)
 
 

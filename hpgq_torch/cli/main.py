@@ -8,8 +8,11 @@ byte-for-byte as ``hpgq`` writes them) plus ``--device`` (default
 ``cuda``).  The legacy single-binary invocations (``--qc``, ``--filter``,
 ``--prep``, ``--cg`` and their spellings, and the combined ``--qc --cg``
 and ``--qc --filter`` runs) dispatch to the commands as ``hpgq``'s do.
-``--sharded`` runs a command as one rank of a ``torch.distributed`` run
-(:mod:`hpgq_torch.dist`).
+``--sharded`` runs a command over every local card, one rank per card
+(:mod:`hpgq_torch.dist.launch`), or as one rank of a ``torchrun`` run
+(:mod:`hpgq_torch.dist`).  The options are parsed and checked here, once,
+before any rank starts; the RESULTS block and the ``--t`` report are
+printed here, from rank 0's result.
 """
 
 from __future__ import annotations
@@ -127,12 +130,12 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
                         "(stats, filter, edit, prepro; host operators and, "
                         "on CUDA, the card's kernels) into this directory")
     p.add_argument("--sharded", action="store_true",
-                   help="Run as one process of a torch.distributed run, one "
-                        "process per card (launch with torchrun, or set "
-                        "RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT): "
-                        "each process reads its own part of the input and "
-                        "rank 0 writes the outputs; every command, single- "
-                        "and paired-end")
+                   help="Data-parallel over every local card, one process "
+                        "per card (CUDA_VISIBLE_DEVICES narrows them); "
+                        "under torchrun (RANK and WORLD_SIZE set) this "
+                        "process is one rank of that run.  Each rank reads "
+                        "its own part of the input and rank 0 writes the "
+                        "outputs; every command, single- and paired-end")
     p.add_argument("--no-pallas", dest="use_pallas", action="store_false",
                    help="No effect in hpgq_torch (accepted for hpgq's "
                         "command lines): CUDA runs the K1/K2 kernels, the "
@@ -394,7 +397,7 @@ def usage(exec_name: str) -> str:
         "         cgr\t\tchaos-game genomic signature\n"
         "\n"
         "Every command takes --device cuda (default) or --device cpu, and\n"
-        "--sharded for one process per card over torch.distributed.\n"
+        "--sharded for one process per local card over torch.distributed.\n"
         "The legacy single-binary flags (--qc, --filter, --prep, --cg) run\n"
         "as in hpgq.\n"
         % (exec_name, __version__, exec_name)
@@ -406,6 +409,7 @@ def main(argv=None) -> int:
 
     from ..device import DeviceUnavailable
 
+    from ..dist.launch import RankFailed
     from ..dist.mesh import leave_group
 
     try:
@@ -413,6 +417,9 @@ def main(argv=None) -> int:
     except (FastqParseError, DeviceUnavailable, NotImplementedError) as e:
         print("Error: %s" % e, file=sys.stderr)
         return -1
+    except RankFailed as e:  # the rank printed its own error
+        print("Error: %s" % e, file=sys.stderr)
+        return e.exitcode
     finally:
         leave_group()
 
@@ -691,14 +698,24 @@ def _parse(command: str, rest, exec_name: str, options_cls,
     return opts, device
 
 
+def _run(opts, timers, device, runner, sharded_runner):
+    """``runner`` in this process, or with ``--sharded`` ``sharded_runner``
+    over the ranks that :func:`~hpgq_torch.dist.launch.run_sharded`
+    starts."""
+    if not opts.sharded:
+        return runner(opts, timers, device=device)
+    from ..dist.launch import run_sharded
+
+    return run_sharded(sharded_runner, opts, timers, device)
+
+
 def _stats(rest, exec_name: str, legacy: bool = False) -> int:
     from ..dist.run_dist import run_stats_sharded
     from ..pipeline.run import run_stats
 
     opts, device = _parse("stats", rest, exec_name, StatsOptions)
     timers = StageTimers()
-    result = (run_stats_sharded if opts.sharded else run_stats)(
-        opts, timers, device=device)
+    result = _run(opts, timers, device, run_stats, run_stats_sharded)
     counters = result[0] if isinstance(result, tuple) else result
     lines = ["Report files and images were stored in '%s' directory"
              % opts.out_dirname]
@@ -722,8 +739,7 @@ def _filter(rest, exec_name: str, legacy: bool = False) -> int:
 
     opts, device = _parse("filter", rest, exec_name, FilterOptions, legacy)
     timers = StageTimers()
-    res = (run_filter_sharded if opts.sharded else run_filter)(
-        opts, timers, device=device)
+    res = _run(opts, timers, device, run_filter, run_filter_sharded)
     if opts.paired_end:
         lines = [
             "Num. passed pairs: %d (%s, %s)"
@@ -747,8 +763,7 @@ def _edit(rest, exec_name: str, legacy: bool = False) -> int:
 
     opts, device = _parse("edit", rest, exec_name, EditOptions)
     timers = StageTimers()
-    res = (run_edit_sharded if opts.sharded else run_edit)(
-        opts, timers, device=device)
+    res = _run(opts, timers, device, run_edit, run_edit_sharded)
     lines = ["Num. edited reads : %d" % res["num_edited"]]
     if opts.paired_end:
         lines.append("Output files      : %s, %s"
@@ -778,8 +793,7 @@ def _prepro(rest, exec_name: str, legacy: bool = False) -> int:
 
     opts, device = _parse("prepro", rest, exec_name, PreproOptions)
     timers = StageTimers()
-    res = (run_edit_sharded if opts.sharded else run_edit)(
-        opts, timers, device=device)
+    res = _run(opts, timers, device, run_edit, run_edit_sharded)
     lines = ["Num. preprocessed reads : %d" % res["num_edited"]]
     if opts.paired_end:
         lines.append("Output files            : %s, %s"

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import logging
 import os
 
@@ -45,6 +46,10 @@ TIMEOUT = datetime.timedelta(minutes=15)
 
 # whether initialize_distributed made the default group (and so owns it)
 _MADE = False
+# the device the local launcher gave this rank (None: LOCAL_RANK picks it)
+_RANK_DEVICE = None
+
+_log = logging.getLogger("hpgq")
 
 _SCALARS = ("num_reads", "num_passed", "num_failed", "acc_length", "num_As",
             "num_Cs", "num_Gs", "num_Ts", "num_Ns")
@@ -60,7 +65,7 @@ class RankGroup:
     device: torch.device
 
 
-def initialize_distributed(device="cuda") -> RankGroup:
+def initialize_distributed(device="cuda", rank_device=None) -> RankGroup:
     """Join the run's process group and pick this rank's device.
 
     torch's launcher variables say where the rank stands: ``RANK``,
@@ -70,9 +75,13 @@ def initialize_distributed(device="cuda") -> RankGroup:
     made.  A default group the caller already made (for
     instance with a ``file://`` rendezvous) is used as it is, and must hold
     gloo, since every collective of the run is on CPU tensors.  On CUDA the
-    rank runs on ``cuda:LOCAL_RANK % device_count``."""
-    global _MADE
-    dev = resolve_device(device)
+    rank runs on ``cuda:LOCAL_RANK % device_count``, unless a
+    ``rank_device`` was given, in this call or an earlier one
+    (:mod:`hpgq_torch.dist.launch` gives each rank its own): that device is
+    the rank's, the CPU too, and two ranks may share a card."""
+    global _MADE, _RANK_DEVICE
+    if rank_device is not None:
+        _RANK_DEVICE = resolve_device(rank_device)
     env = os.environ
     made = dist.is_available() and dist.is_initialized()
     if made:
@@ -85,16 +94,21 @@ def initialize_distributed(device="cuda") -> RankGroup:
     elif "RANK" in env and "WORLD_SIZE" in env:
         rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     else:
-        return RankGroup(0, 1, dev)
+        return RankGroup(0, 1, resolve_device(device))
+    if _RANK_DEVICE is not None:
+        dev = _RANK_DEVICE
+    else:
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(env.get("LOCAL_RANK", rank))
+                               % torch.cuda.device_count())
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(env.get("LOCAL_RANK", rank))
-                           % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     if not made:
         dist.init_process_group("gloo", init_method="env://", rank=rank,
                                 world_size=world, timeout=TIMEOUT)
         _MADE = True
-    logging.getLogger("hpgq").info(
+    _log.info(
         "torch.distributed: rank %d of %d on %s, collectives over gloo",
         rank, world, dev)
     return RankGroup(rank, world, dev)
@@ -109,6 +123,104 @@ def leave_group() -> None:
     if _MADE and dist.is_initialized():
         dist.destroy_process_group()
     _MADE = False
+
+
+def rank_devices(opts, device="cuda") -> list:
+    """The devices of the ranks that a ``--sharded`` run of ``opts`` starts
+    on this host, one per rank; a list of one means that this process runs
+    the command itself.  The counterpart of ``data_mesh()``'s default,
+    every local device (``hpgq/dist/mesh.py:43-46``):
+
+    * under a launcher (``RANK`` and ``WORLD_SIZE`` set) or in a process
+      group that exists already, this process is one rank of that run;
+    * on the CPU, one process;
+    * resuming a checkpoint set that M ranks wrote, M ranks (round-robin
+      over the cards when M is more); a one-process checkpoint (``hpgq``'s
+      one-process mesh writes one) stays in one process;
+    * plain gzip with ``--checkpoint``, one process: striped ranks drop
+      the checkpoint (:func:`~hpgq_torch.dist.run_dist._striped_checkpoint`),
+      and ``hpgq``'s one-process mesh keeps it; plain gzip where the
+      command needs byte ranges (paired ``stats``, ``filter``, ``edit``,
+      ``prepro``), one process too, as in ``hpgq``'s mesh;
+    * one visible card, one process;
+    * else one rank per visible card (``CUDA_VISIBLE_DEVICES`` narrows
+      them).
+
+    The choice is logged at INFO with its reason."""
+    devs, why = _rank_plan(opts, torch.device(device))
+    if len(devs) == 1:
+        _log.info("--sharded: 1 process on %s: %s", devs[0], why)
+    else:
+        _log.info("--sharded: %d ranks, %s: %s", len(devs), why,
+                  ", ".join(str(d) for d in devs))
+    return devs
+
+
+def _rank_plan(opts, dev):
+    """``(devices, reason)`` of :func:`rank_devices`."""
+    if (dist.is_available() and dist.is_initialized()) or (
+            "RANK" in os.environ and "WORLD_SIZE" in os.environ):
+        return [dev], "this process is one rank of a launched run"
+    if dev.type != "cuda":
+        return [dev], "the run is on the %s" % dev.type
+    cards = torch.cuda.device_count()
+    inputs = [opts.in_filename] + ([opts.in_filename2]
+                                   if opts.paired_end else [])
+    if opts.checkpoint_path:
+        m = checkpoint_world_size(opts.checkpoint_path, inputs)
+        if m == 1:
+            return [dev], "resuming a one-process checkpoint"
+        if m > 1:
+            return ([torch.device("cuda", r % cards) for r in range(m)],
+                    "resuming a %d-rank checkpoint" % m)
+    if not all(range_splittable(p) for p in inputs):
+        cmd = opts.command_name
+        if opts.checkpoint_path:
+            return [dev], ("plain gzip input with --checkpoint (striped "
+                           "ranks cannot resume)")
+        if cmd == "stats" and opts.paired_end:
+            cmd = "paired stats"
+        if cmd not in ("stats", "cgr"):  # the commands that stripe gzip
+            return [dev], ("plain gzip input, which %s splits only by byte "
+                           "range" % cmd)
+    if cards < 2:
+        return [dev], "one visible card"
+    return ([torch.device("cuda", i) for i in range(cards)],
+            "one per card")
+
+
+def _checkpoint_key(path: str):
+    """The config key (decoded) of the checkpoint at ``path``, or None."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
+        return json.loads(meta["config_key"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def checkpoint_world_size(path: str, inputs) -> int:
+    """How many processes wrote the checkpoint set at ``path``: ``nprocs``
+    of the rotating slots (``<path>.rank0.{a,b}``, ``<path>.{a,b}``) of
+    ``stats`` and ``cgr``; for ``filter``, ``edit`` and ``prepro``, the
+    rank count whose byte range of ``inputs[0]`` matches the range in a
+    rank's ``<path>.rankNNNN`` (up to 256 ranks), or 1 for a single
+    ``<path>``.  0 when there is no checkpoint."""
+    for base in (path + ".rank0", path):
+        for slot in ("a", "b"):
+            key = _checkpoint_key("%s.%s" % (base, slot))
+            if key is not None:
+                return int(key.get("nprocs", 1))
+    d, name = os.path.split(os.path.abspath(path))
+    ranks = sorted(int(f[len(name) + 5:]) for f in os.listdir(d)
+                   if f.startswith(name + ".rank")
+                   and f[len(name) + 5:].isdigit())
+    for i in ranks:
+        rng = (_checkpoint_key("%s.rank%04d" % (path, i)) or {}).get("range")
+        for m in range(i + 1, 257):
+            if rng and list(split_byte_ranges(inputs[0], m)[i]) == rng:
+                return m
+    return 1 if os.path.exists(path) else 0
 
 
 def _all_reduce(values: np.ndarray, op) -> np.ndarray:

@@ -137,9 +137,10 @@ def run_cgr(opts: CgrOptions, timers: Optional[StageTimers] = None,
     _warn_no_pallas(opts)  # --profile-dir is taken and writes no trace
     timers = timers or StageTimers()
     if opts.sharded:
+        from ..dist.launch import run_sharded
         from ..dist.run_dist import run_cgr_sharded
 
-        return run_cgr_sharded(opts, timers, device=dev)
+        return run_sharded(run_cgr_sharded, opts, timers, dev)
     k = int(opts.k)
     phred = opts.quality_encoding_value
     sess = CgrSession(k, phred, _batch_reads(opts, dev), dev)

@@ -483,7 +483,8 @@ got, _, tiers = chip_smoke.paired_long_run(
     *chip_smoke.long_pairs(outdir, n=20, n_huge=2), outdir, "cpu")
 assert 0 < got[0].num_passed < 22 and sum(tiers.values()) == 2, tiers
 # phase 13 small: sharded stats at world size 1 (no group, then launched),
-# the legacy --qc --filter run, and two ranks over gloo
+# the legacy --qc --filter run, and two ranks over gloo (the port's
+# launcher)
 _, _, res = chip_smoke.sharded_world1(path, records,
                                       os.path.join(outdir, "w1"), "cpu",
                                       outdir)
@@ -495,6 +496,14 @@ res2 = chip_smoke.sharded_ranks(((path, records), (m2, rec2),
                                  (lpath, lrec)),
                                 os.path.join(outdir, "w2"), "cpu", outdir)
 assert len(res2) == 7, sorted(res2)
+# and the launcher's own paths: one launched rank, the CLI with no
+# launcher variables, a rank that raises
+one = chip_smoke.launched_world1(path, records, os.path.join(outdir, "w1l"),
+                                 "cpu", outdir)
+assert chip_smoke.startup_s(one["stats"]) > 0, one
+said, _ = chip_smoke.cli_sharded(path, records, os.path.join(outdir, "cli"),
+                                 "cpu")
+assert chip_smoke.start_failing_rank(outdir, ["cpu", "cpu"])() < 60
 # phase 14 small: gzip and BGZF input, cgr over gzip, filter over BGZF, the
 # coalesced run and the profiled runs; phase 15 small: fuzz rounds
 iruns = chip_smoke.input_runs(path, records, outdir, "cpu",
@@ -523,7 +532,8 @@ def test_imports_load_no_jax(tmp_path):
     checks (phase 12), the long-read window run and paired long reads
     (phases 8-9) and its ``--sharded`` and legacy CLI checks (phase 13:
     world size 1 with and without the launcher's variables, two ranks
-    over gloo), its gzip, BGZF, coalesced and profiled runs (phase 14) and
+    over gloo and one started by ``hpgq_torch.dist.launch``, ``stats
+    --sharded`` through the CLI, a rank that raises), its gzip, BGZF, coalesced and profiled runs (phase 14) and
     fuzz rounds (phase 15) run small on the CPU; ``bench_torch.py`` and
     ``tools/fuzz_torch.py`` are walked and loaded too."""
     out = subprocess.run(
