@@ -195,10 +195,14 @@ def _packed_blocks(path, batch_size):
 
 
 def _filtered_stats(acc, packed, crit):
-    """Fold one packed block's stats over the reads ``crit`` passes."""
+    """Fold one packed block's stats over the reads ``crit`` passes (every
+    valid read, and no passed/failed tally, when ``crit`` is None)."""
     from hpgq_torch import baseline as bl
 
     codes, quals, lens, valid = packed
+    if crit is None:
+        return acc.merge(bl.block_stats(codes, quals, lens, valid,
+                                        phred=PHRED)), valid
     ok = bl.block_verdicts(codes, quals, lens, crit, PHRED) & valid
     acc = acc.merge(bl.block_stats(codes, quals, lens, ok, phred=PHRED))
     acc.num_passed += int(ok.sum())
@@ -206,14 +210,14 @@ def _filtered_stats(acc, packed, crit):
     return acc, ok
 
 
-def oracle_stats(path, batch_size):
-    """``stats`` + ``CRIT``, one CPU: (reads, counters)."""
+def oracle_stats(path, batch_size, crit=CRIT):
+    """``stats`` + ``crit``, one CPU: (reads, counters)."""
     from hpgq_torch.core.counters import StatsCounters
 
     acc = StatsCounters(phred=PHRED)
     n = 0
     for block, packed in _packed_blocks(path, batch_size):
-        acc, _ = _filtered_stats(acc, packed, CRIT)
+        acc, _ = _filtered_stats(acc, packed, crit)
         n += block.num_reads
     return n, acc
 
@@ -240,9 +244,10 @@ def lockstep_pairs(r1, r2):
         p2 += n
 
 
-def oracle_paired(path1, path2, batch_size):
-    """Paired ``stats`` + ``CRIT``, one CPU: (reads of both mates, (c1,
-    c2)); a pair counts when both mates pass, tallies per pair."""
+def oracle_paired(path1, path2, batch_size, crit=CRIT):
+    """Paired ``stats`` + ``crit``, one CPU: (reads of both mates, (c1,
+    c2)); a pair counts when both mates pass, tallies per pair (every
+    pair counts, and no tally, when ``crit`` is None)."""
     from hpgq_torch import baseline as bl
     from hpgq_torch.core.counters import StatsCounters
     from hpgq_torch.io.fastq import FastqReader
@@ -256,14 +261,16 @@ def oracle_paired(path1, path2, batch_size):
             p = [pack_block(b1), pack_block(b2)]
             both = p[0][3] & p[1][3]
             for codes, quals, lens, _ in p:
-                both &= bl.block_verdicts(codes, quals, lens, CRIT, PHRED)
+                if crit is not None:
+                    both &= bl.block_verdicts(codes, quals, lens, crit, PHRED)
             for i, (codes, quals, lens, _) in enumerate(p):
                 acc[i] = acc[i].merge(bl.block_stats(codes, quals, lens, both,
                                                      phred=PHRED))
             pairs += b1.num_reads
             passed += int(both.sum())
-    for c in acc:
-        c.num_passed, c.num_failed = passed, pairs - passed
+    if crit is not None:
+        for c in acc:
+            c.num_passed, c.num_failed = passed, pairs - passed
     return 2 * pairs, tuple(acc)
 
 
@@ -293,10 +300,11 @@ def oracle_filter(path, batch_size, outdir):
     return n, files
 
 
-def oracle_edit(path, batch_size, outdir):
+def oracle_edit(path, batch_size, outdir, restats=True):
     """Config #3, one CPU: trim with ``EDIT_CRIT``, write ``edit.fq``,
     then the stats of what was written (``bench.py:424-451``): (reads,
-    ({"edit.fq": path}, counters))."""
+    ({"edit.fq": path}, counters)); ``restats=False`` stops after the
+    trims (counters None), the ``edit`` command alone."""
     from hpgq_torch import baseline as bl
     from hpgq_torch.core.counters import StatsCounters
 
@@ -310,6 +318,8 @@ def oracle_edit(path, batch_size, outdir):
             if k:
                 _emit_spans(ew, block, starts, ends)
             n += block.num_reads
+    if not restats:
+        return n, ({"edit.fq": epath}, None)
     acc = StatsCounters(phred=PHRED)
     for _, (codes, quals, lens, valid) in _packed_blocks(epath, batch_size):
         acc = acc.merge(bl.block_stats(codes, quals, lens, valid,
@@ -332,6 +342,19 @@ def oracle_cgr(path):
     return n, (ts, tq, words)
 
 
+def oracle_cgr_tables(path):
+    """The CGR tables at k=7 of every read of the plain FASTQ ``path`` by
+    the vectorised reference (``hpgq_torch.oracle.reference_cgr``, held
+    equal to the loop by the tests): for corpora too large for the loop's
+    ~5,000 reads/s.  (reads, (table_seq, table_q, words))."""
+    from hpgq_torch.oracle import reference_cgr
+
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    records = list(zip(lines[0::4], lines[1::4], lines[3::4]))
+    return len(records), reference_cgr(records, CGR_K, PHRED)
+
+
 # ------------------------------------------------------------ the engine
 
 def _options(cls, path, outdir, batch_size, crit=None, path2=None, **kw):
@@ -344,47 +367,58 @@ def _options(cls, path, outdir, batch_size, crit=None, path2=None, **kw):
     return o
 
 
-def engine_stats(path, outdir, batch_size, batch_reads, dev):
+def engine_stats(path, outdir, batch_size, batch_reads, dev, crit=CRIT,
+                 timers=None, report=True, **kw):
     """The headline's pass (``bench.py:172-198``): ``run_stats`` with
-    ``CRIT``, reports written.  (reads, counters)."""
+    ``crit``, reports written unless ``report=False``; ``kw`` are more
+    ``StatsOptions`` fields.  (reads, counters)."""
     from hpgq_torch.options import StatsOptions
     from hpgq_torch.pipeline.run import run_stats
 
-    c = run_stats(_options(StatsOptions, path, outdir, batch_size, CRIT,
-                           device_batch_reads=batch_reads), device=dev)
-    return c.num_passed + c.num_failed, c
+    c = run_stats(_options(StatsOptions, path, outdir, batch_size, crit,
+                           device_batch_reads=batch_reads, **kw), timers,
+                  report=report, device=dev)
+    return c.num_reads + c.num_failed, c
 
 
-def engine_paired(path1, path2, outdir, batch_size, dev):
+def engine_paired(path1, path2, outdir, batch_size, dev, crit=CRIT,
+                  timers=None, **kw):
     from hpgq_torch.options import StatsOptions
     from hpgq_torch.pipeline.run import run_stats
 
-    c1, c2 = run_stats(_options(StatsOptions, path1, outdir, batch_size, CRIT,
-                                path2=path2), device=dev)
-    return 2 * (c1.num_passed + c1.num_failed), (c1, c2)
+    c1, c2 = run_stats(_options(StatsOptions, path1, outdir, batch_size, crit,
+                                path2=path2, **kw), timers, device=dev)
+    return 2 * (c1.num_reads + c1.num_failed), (c1, c2)
 
 
-def engine_filter(path, outdir, batch_size, dev):
+def engine_filter(path, outdir, batch_size, dev, timers=None, **kw):
     from hpgq_torch.options import FilterOptions
     from hpgq_torch.pipeline.run import run_filter
 
     r = run_filter(_options(FilterOptions, path, outdir, batch_size,
-                            FILTER_CRIT), device=dev)
+                            FILTER_CRIT, **kw), timers, device=dev)
     return r["num_passed"] + r["num_failed"], {
         "passed.fq": r["passed_filename"], "failed.fq": r["failed_filename"]}
 
 
-def engine_edit(path, outdir, batch_size, dev):
+def engine_edit(path, outdir, batch_size, dev, timers=None, restats=True,
+                **kw):
     """Config #3 (``bench.py:530-559``): ``run_edit`` then ``run_stats``
-    over ``edit.fq``."""
+    over ``edit.fq``; ``restats=False`` runs ``edit`` alone (counters
+    None)."""
     from hpgq_torch.options import EditOptions, StatsOptions
     from hpgq_torch.pipeline.run import run_edit, run_stats
+    from hpgq_torch.utils.timers import StageTimers
 
+    timers = timers or StageTimers()
     r = run_edit(_options(EditOptions, path, outdir, batch_size, EDIT_CRIT,
-                          filter_on=False), device=dev)
+                          filter_on=False, **kw), timers, device=dev)
+    files = {"edit.fq": r["edit_filename"]}
+    if not restats:
+        return timers.total_reads, (files, None)
     c = run_stats(_options(StatsOptions, r["edit_filename"], outdir,
                            batch_size), device=dev)
-    return c.num_reads, ({"edit.fq": r["edit_filename"]}, c)
+    return c.num_reads, (files, c)
 
 
 def engine_cgr(path, batch_size, dev):
@@ -430,6 +464,24 @@ def check_tables(got, want, label):
             and int(got[2]) == int(want[2])):
         raise BenchMismatch("%s: CGR tables or word count differ from the "
                             "oracle's" % label)
+
+
+def check_result(cmd, got, want, label):
+    """Raises :class:`BenchMismatch` unless a pass of ``cmd`` ("stats",
+    "paired", "filter", "edit" or "cgr") gave the oracle's result."""
+    if cmd == "stats":
+        check_counters(got, want, label)
+    elif cmd == "paired":
+        for mate, g, w in zip((1, 2), got, want):
+            check_counters(g, w, "%s, mate %d" % (label, mate))
+    elif cmd == "filter":
+        check_files(got, want, label)
+    elif cmd == "edit":
+        check_files(got[0], want[0], label)
+        if want[1] is not None:
+            check_counters(got[1], want[1], label + ", stats over edit.fq")
+    else:
+        check_tables(got, want, label)
 
 
 # ------------------------------------------------------------ measurement
@@ -672,12 +724,9 @@ def modes(b: Bench, path, which):
     def setup_paired():
         mate2 = mate2_corpus(a.reads, a.len, a.qual_shape)
         out = b.mktmp()
-
-        def check(g, w):
-            for mate, x, y in zip((1, 2), g, w):
-                check_counters(x, y, "paired stats, mate %d" % mate)
         return (lambda: engine_paired(path, mate2, out, a.batch_size, b.dev),
-                lambda: oracle_paired(path, mate2, a.batch_size), check)
+                lambda: oracle_paired(path, mate2, a.batch_size),
+                lambda g, w: check_result("paired", g, w, "paired stats"))
 
     def setup_compressed(cpath, label):
         out = b.mktmp()
@@ -713,12 +762,9 @@ def modes(b: Bench, path, which):
     def setup_edit():
         vpath = var_corpus(n_small, a.qual_shape)
         eout, oout = b.mktmp(), b.mktmp()
-
-        def check(g, w):
-            check_files(g[0], w[0], "edit")
-            check_counters(g[1], w[1], "stats over edit.fq")
         return (lambda: engine_edit(vpath, eout, a.batch_size, b.dev),
-                lambda: oracle_edit(vpath, a.batch_size, oout), check)
+                lambda: oracle_edit(vpath, a.batch_size, oout),
+                lambda g, w: check_result("edit", g, w, "edit"))
 
     setups = {  # bench.py's order: the tightest ratios first
         "paired": ("paired_stats_filter_reads_per_sec", setup_paired),

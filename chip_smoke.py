@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # phases 1-5 and 7-15 (one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5 and 7-16 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
@@ -122,6 +122,13 @@ Phases, each printing its own lines:
 15. Fuzz: 12 rounds of ``tools/fuzz_torch.py`` (seed 4, every command
     among them, sharded, paired and interrupted rounds too) on the card,
     each held against the reference.
+16. A/B: every study of ``tools/ab_torch.py`` (``engine_cfg``,
+    ``coalesce``, ``wire2c``, ``wire6``, ``writer``, ``fixed``,
+    ``paired``) at 100,000 reads and two rounds, corpora of its own (the
+    1M-read files of phases 4 and 9 are ten times the size): every pass of
+    every arm held against the bench's single-CPU oracle, the ``wire2c``
+    arms on 2q against 2u batches and the ``wire6`` arms on 7-bit against
+    6-bit ones; one summary line per study.
 
 Phases 9-14 reuse the corpora of phases 4 and 8, and write them when
 those phases are not selected; each phase prints its seconds (PERF.md
@@ -134,7 +141,8 @@ kernels line gives K1's plain and 2u entries and K2 with their launches
 on the paths that drive them (phase 4, 9's unfiltered run and 13's
 sharded stats, 14's gzip, BGZF and profiled stats for the 2u entry;
 phases 5, 9's filtered run, 11's stats over the trimmed short reads, 13's
-sharded paired stats and 14's coalesced run for the plain entry; phase 8,
+sharded paired stats and 14's coalesced run for the plain entry; phase
+16's studies for both K1 entries; phase 8,
 9's long pairs, 11's stats over the trimmed long reads and 13's sharded
 long-read stats for K2; phase 15's fuzz rounds for either K1 entry).
 
@@ -2417,14 +2425,84 @@ def phase_fuzz():
     return k1, k1u
 
 
+# ---------------------------------------------------------------- phase 16
+
+AB_READS, AB_ROUNDS = 100_000, 2
+# the tiers of the wire arms, (off, on): 2u needs the 2c machinery, so
+# HPGQ_WIRE2C=0 sends uniform-length reads to 2q
+WIRE_ARMS = {"wire2c": ("stats 2q", "stats 2u"),
+             "wire6": ("stats 7bit", "stats 6bit")}
+
+
+def ab_runs(device, tmp, reads=AB_READS, rounds=AB_ROUNDS, emit=None):
+    """Every study of ``tools/ab_torch.py`` on ``device`` at ``reads``
+    reads, corpora under ``tmp/ab``, every pass held against the oracle by
+    the tool; the wire arms must ride the tiers they switch between.
+    Returns (the summary lines, the launches of every pass)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import ab_torch
+    import bench_torch
+
+    saved = bench_torch.BENCH_DIR
+    bench_torch.BENCH_DIR = os.path.join(tmp, "ab")
+    try:
+        summaries, launches = ab_torch.run("all", torch.device(device),
+                                           rounds, reads, emit=emit)
+    except bench_torch.BenchMismatch as e:
+        raise SmokeFailure("tools/ab_torch.py: %s" % e)
+    finally:
+        bench_torch.BENCH_DIR = saved
+    check(len(summaries) == 8, "ab_torch gave %d summaries" % len(summaries))
+    for s in summaries:
+        if s["summary"] in WIRE_ARMS:
+            got = tuple(tuple(s["arms"][a]["tiers"]) for a in ("off", "on"))
+            check(got == tuple((t,) for t in WIRE_ARMS[s["summary"]]),
+                  "%s: the arms rode the tiers %s" % (s["summary"], got))
+    return summaries, launches
+
+
+def _ab_line(obj):
+    """The summary lines of ``ab_torch``, shortened to what PERF.md keeps."""
+    if "summary" not in obj:
+        return
+    if "arms" in obj:
+        say("ab", "%s %s: %s" % (obj["summary"], obj["command"], "; ".join(
+            "%s median %.0f reads/s (%.0f-%.0f), ratio %.4f, tiers %s%s"
+            % (a, v["median_reads_per_sec"], v["spread"][0], v["spread"][1],
+               v["median_ratio"], v["tiers"],
+               ", dispatches %s" % v["dispatches"]
+               * (obj["summary"] == "coalesce"))
+            for a, v in obj["arms"].items())))
+    else:
+        say("ab", json.dumps(obj))
+
+
+def phase_ab(tmp, smi):
+    """Phase 16; returns the launches of K1's plain and 2u entries."""
+    reset_counts()
+    t0 = time.perf_counter()
+    _, launches = ab_runs("cuda", tmp, emit=_ab_line)
+    n = launch_counts()
+    check(n == {k: launches.get(k, 0) for k in n},
+          "the launch counts %s, the tool's passes %s" % (n, launches))
+    check(n["K1"] > 0 and n["K1 2u"] > 0, "the ab_torch studies launched "
+          "K1 %s" % n)
+    say("ab", "every study of tools/ab_torch.py at %d reads, %d rounds, "
+        "every pass == oracle, in %.1f s on %s; launches %s"
+        % (AB_READS, AB_ROUNDS, time.perf_counter() - t0, smi, n))
+    return n["K1"], n["K1 2u"]
+
+
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default 1-5 and "
-                         "7-15; 6, the stage breakdown, runs only when "
+                         "7-16; 6, the stage breakdown, runs only when "
                          "asked for; the card and the build always run)")
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks of phase 13's multi-rank runs (default: one "
@@ -2560,6 +2638,11 @@ def main(argv=None):
         if 15 in phases:
             clock(15)
             n_plain, n_2u = phase_fuzz()
+            k1["launches"] += n_plain
+            k1u["launches"] += n_2u
+        if 16 in phases:
+            clock(16)
+            n_plain, n_2u = phase_ab(tmp, smi)
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
         if 6 in phases:

@@ -83,8 +83,10 @@ def _pass(path, outdir, dev, timers=None):
     return time.perf_counter() - t0, counters.num_passed + counters.num_failed
 
 
-def end_to_end(path, outdir, dev, turns: int, out=sys.stdout):
-    """Wall seconds of every pass, by arm, the arms run in turns."""
+def end_to_end(path, outdir, dev, turns: int, out=None):
+    """Wall seconds of every pass, by arm, the arms run in turns; printed
+    to ``out`` (``sys.stdout`` as it is at the call)."""
+    out = out or sys.stdout
     _pass(path, outdir, dev)  # warm: kernel build, allocator, page cache
     times = {label: [] for label, _ in ARMS}
     n = 0
@@ -105,11 +107,12 @@ def end_to_end(path, outdir, dev, turns: int, out=sys.stdout):
     return times
 
 
-def stages(path, dev, out=sys.stdout) -> dict:
-    """Each stage alone, one thread, over the whole file; prints each and
-    returns the numbers (``busy`` only on CUDA: the profiled steps'
-    ``(device ms, K1/K2 ms, wall ms)``, None where the profiler saw no
-    device)."""
+def stages(path, dev, out=None) -> dict:
+    """Each stage alone, one thread, over the whole file; prints each to
+    ``out`` (``sys.stdout`` as it is at the call) and returns the numbers
+    (``busy`` only on CUDA: the profiled steps' ``(device ms, K1/K2 ms,
+    wall ms)``, None where the profiler saw no device)."""
+    out = out or sys.stdout
     res = {}
     t0 = time.perf_counter()
     with FastqReader(path, batch_size=READER_BATCH) as rd:

@@ -29,6 +29,7 @@ The thresholds are the keywords of :func:`hpgq_torch.stats`.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -42,6 +43,12 @@ CHUNK_ELEMS = 1 << 26             # padded bases per chunk (rows x width)
 _LUT = np.full(256, 5, dtype=np.int8)  # A C G T N, either case; other 5
 for _code, _ch in enumerate("ACGTN"):
     _LUT[ord(_ch)] = _LUT[ord(_ch.lower())] = _code
+if os.environ.get("HPGQ_STRICT_CASE"):
+    # [D6] strict-compat, read at import as the packers read it
+    # (hpgq_torch/io/packer.py): only uppercase bases count; a lowercase
+    # base counts toward length, falls in no base bin, is no N for the
+    # max-N screen and breaks a CGR word, as any other byte does
+    _LUT[[ord(_ch) for _ch in "acgtn"]] = 5
 
 COUNTER_KEYS = ("num_reads", "num_passed", "num_failed", "acc_length",
                 "min_length", "max_length", "num_As", "num_Cs", "num_Gs",
@@ -278,8 +285,9 @@ _CGR_Y = np.array([0, 0, 1, 1, 0, 0], np.int32)
 def reference_cgr(records, k: int, phred: int = 33, chunk: int = CHUNK_ELEMS):
     """``cgr``'s tables over ``records``: ``(table_seq, table_q, words)``,
     int64 ``[2^k, 2^k]`` tables and the word count.  A word is a window of
-    k bases inside one read holding only A, C, G or T (either case; an N or
-    any other byte breaks it, [D7]); its cell is the k-bit x and y codes of
+    k bases inside one read holding only A, C, G or T (either case, or
+    uppercase only under ``HPGQ_STRICT_CASE`` [D6]; an N or any other byte
+    breaks it, [D7]); its cell is the k-bit x and y codes of
     the chaos game's closed form (``hpgq/kernels/cgr.py:1-23``: the base at
     window offset ``t`` weighs ``2^t``, x set for A and T, y for G and T),
     and its quality weight is the window's quality sum minus ``phred*k``."""

@@ -394,7 +394,8 @@ def imported(py):
 
 
 sources = [os.path.join(repo, f) for f in ("chip_smoke.py", "bench_torch.py",
-                                          "tools/fuzz_torch.py")]
+                                          "tools/fuzz_torch.py",
+                                          "tools/ab_torch.py")]
 for root, _, files in os.walk(os.path.join(repo, "hpgq_torch")):
     sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
 named = {(os.path.relpath(py, repo), m) for py in sources
@@ -514,7 +515,11 @@ fz = chip_smoke.fuzz_rounds("cpu", rounds=4, seed=chip_smoke.FUZZ_SEED,
                             max_n=800)
 assert sorted(c["cmd"] for c, _, _ in fz) == ["cgr", "edit", "filter",
                                               "stats"]
-import bench_torch, fuzz_torch
+# phase 16 small: every study of tools/ab_torch.py
+ab, _ = chip_smoke.ab_runs("cpu", outdir, reads=600, rounds=1,
+                           emit=lambda obj: None)
+assert len(ab) == 8, ab
+import bench_torch, fuzz_torch, ab_torch
 print("ok", len(names))
 """
 
@@ -533,9 +538,10 @@ def test_imports_load_no_jax(tmp_path):
     (phases 8-9) and its ``--sharded`` and legacy CLI checks (phase 13:
     world size 1 with and without the launcher's variables, two ranks
     over gloo and one started by ``hpgq_torch.dist.launch``, ``stats
-    --sharded`` through the CLI, a rank that raises), its gzip, BGZF, coalesced and profiled runs (phase 14) and
-    fuzz rounds (phase 15) run small on the CPU; ``bench_torch.py`` and
-    ``tools/fuzz_torch.py`` are walked and loaded too."""
+    --sharded`` through the CLI, a rank that raises), its gzip, BGZF, coalesced and profiled runs (phase 14),
+    fuzz rounds (phase 15) and the studies of ``tools/ab_torch.py`` (phase
+    16) run small on the CPU; ``bench_torch.py``, ``tools/fuzz_torch.py``
+    and ``tools/ab_torch.py`` are walked and loaded too."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, REPO, str(tmp_path / "in.fq"),
          str(tmp_path)], capture_output=True, text=True, cwd=str(tmp_path),
