@@ -19,7 +19,10 @@ Phases, each printing its own lines:
    settings each.  Integer fields and the pass mask must match exactly;
    ``acc_quality`` to 1e-4 relative (per-tile f32 sums are added in
    another order than torch's).  Then both entries timed against the
-   twin: device ms, bytes needed, GB/s, the bound and its share.
+   twin: device ms (the profiler's kernel records, and CUDA events
+   around the raw launches alone, which the row takes where the trace is
+   incomplete; never the wrapper's time), bytes needed, GB/s, the bound
+   and its share.
 4. End to end: ``hpgq_torch.stats`` with the bench's inline filter over a
    generated 1,000,000 x 100 bp RTA3-binned corpus on ``cuda``, held
    against ``hpgq_torch.oracle``, a plain numpy reference computed from
@@ -105,7 +108,11 @@ Phases, each printing its own lines:
     reports; and a launch whose rank 1 raises, whose parent must exit
     non-zero within 60 s with no rank left.  Reads/s of one warm pass at
     world size 1 (in this process and through the launcher) and at the
-    ranks', and the seconds from each launch to its first batch.
+    ranks', the seconds from each launch to its first batch, and rank 0's
+    start-up split by stage at world size 1 and at the ranks' (the
+    launcher's stamps: spawn, imports, join, CUDA context, kernel library
+    and packer, first batch; their sum must be rank 0's own
+    launch-to-first-batch time within 0.1 s).
     ``--ranks N`` runs N ranks, round-robin over the cards.
 14. Inputs: phase 4's corpus as plain gzip and as BGZF, ``stats`` with the
     bench filter over each (counters equal to the reference, every report
@@ -314,11 +321,17 @@ def bound(nbytes, nbases):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernel(phase, label, kernel_fn, plain_fn, name, nbytes, nbases,
-                launches_per_call=1):
+def time_kernel(phase, label, kernel_fn, plain_fn, prepare, name, nbytes,
+                nbases, launches_per_call=1):
     """The kernel against its plain twin on the same inputs: CUDA events in
-    turns (plain, kernel, kernel, plain), then the kernels' device time
-    alone (profiler); prints ms, bytes, GB/s, the bound and its share."""
+    turns (plain, kernel, kernel, plain) around the wrapper and the twin,
+    then the kernel's device time alone, by two timers: the profiler's
+    kernel records (:func:`kernel_device_ms`) and CUDA events around the
+    raw launches of ``prepare()`` (:func:`kernel_event_ms`).  The row
+    takes the profiler's time, else the events'.  Prints ms, bytes, GB/s,
+    the bound and its share.  The wrapper's time goes in ``wrapper_ms``
+    only: where neither timer gives the kernel's time, ``ms`` is None, the
+    line says why, and no share is computed."""
     ms_plain = ms = None
     for turn in ("plain", "kernel", "kernel", "plain"):
         if turn == "kernel":
@@ -327,19 +340,52 @@ def time_kernel(phase, label, kernel_fn, plain_fn, name, nbytes, nbases,
         else:
             t = cuda_time_ms(plain_fn)
             ms_plain = t if ms_plain is None else min(ms_plain, t)
-    dev_ms = kernel_device_ms(kernel_fn, launches_per_call, name=name)
+    prof_ms = kernel_device_ms(kernel_fn, launches_per_call, name=name)
+    try:
+        ev_ms = kernel_event_ms(prepare)
+        events = "%.4f" % ev_ms
+    except Exception as e:  # the line says why; the phase goes on
+        ev_ms, events = None, "failed (%s: %s)" % (type(e).__name__, e)
+    k_ms = prof_ms if prof_ms is not None else ev_ms
+    timers = ("torch.profiler %s, CUDA events around the raw launches %s"
+              % ("an incomplete trace" if prof_ms is None
+                 else "%.4f" % prof_ms, events))
     b_ms, b_by = bound(nbytes, nbases)
-    k_ms = dev_ms if dev_ms is not None else ms
+    if k_ms is None:
+        kernel = "device time not measured (%s); bound %.4f ms (%s), " \
+                 "share not computed" % (timers, b_ms, b_by)
+    else:
+        kernel = ("device %.4f ms per call (%s; %d launch(es)); %.1f GB/s; "
+                  "bound %.4f ms (%s), %.1f%% of the bound"
+                  % (k_ms, timers, launches_per_call, nbytes / k_ms / 1e6,
+                     b_ms, b_by, 100 * b_ms / k_ms))
     say(phase, "%s: wrapper %.4f ms per call, plain twin %.4f ms (CUDA "
-        "events, best of 2 turns of 20 calls); device %s ms per call "
-        "(torch.profiler, %d launch(es)); %d bytes needed, %.1f GB/s; bound "
-        "%.4f ms (%s), %.1f%% of the bound"
-        % (label, ms, ms_plain,
-           "not measured" if dev_ms is None else "%.4f" % dev_ms,
-           launches_per_call, nbytes, nbytes / k_ms / 1e6, b_ms, b_by,
-           100 * b_ms / k_ms))
+        "events, best of 2 turns of 20 calls); %d bytes needed; %s"
+        % (label, ms, ms_plain, nbytes, kernel))
     return {"ms": k_ms, "wrapper_ms": ms, "plain_ms": ms_plain,
             "bound_ms": b_ms, "bound_by": b_by}
+
+
+def kernel_event_ms(prepare, iters=20):
+    """Device ms per call from CUDA events around ``iters`` raw launches
+    alone, on the launching stream: ``prepare()`` (a ``stats_cuda.prepare_*``
+    call) gives each launch its own zeroed outputs beforehand, and a sleep
+    on the card keeps it busy while the launches are queued, so that the
+    host's queueing is not timed."""
+    import torch
+
+    launches = [prepare()[0] for _ in range(iters + 1)]
+    launches[0]()  # the warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for launch in launches[1:]:
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def make_2u(B, L, n_valid, seed, all_n_every=0):
@@ -366,6 +412,8 @@ def phase_kernel(dev):
         batch_partials_cuda,
         batch_partials_cuda_2u,
         make_batch_partials,
+        prepare_k1,
+        prepare_k1_2u,
     )
     from hpgq_torch.kernels.stats_torch import fused_partials
     from hpgq_torch.kernels.wire_torch import pad_wire_cols, wire_unbits2u
@@ -460,6 +508,7 @@ def phase_kernel(dev):
         lambda: batch_partials_cuda(codes, quals, lens, valid, 128, 33,
                                     bench),
         lambda: fused_partials(codes, quals, lens, valid, 128, 33, bench),
+        lambda: prepare_k1(codes, quals, lens, valid, 128, 33, bench),
         "stats_k1_kernel", 2 * nbases + 5 * B + output_bytes(B, 128, 2049),
         nbases)}
     wire, nv, L = wires["main 131072x52 bytes (L 100)"]
@@ -469,6 +518,7 @@ def phase_kernel(dev):
         "filter" % n_exc,
         lambda: batch_partials_cuda_2u(*wire, nv, L, 128, 33, bench),
         lambda: plain_2u(*wire, nv, L, 128, bench),
+        lambda: prepare_k1_2u(*wire, nv, L, 128, 33, bench),
         "stats_k1_kernel", wire[0].numel() + 4 * n_exc + 4
         + output_bytes(B, 128, 2049), nv * L)
     for key in out:
@@ -684,7 +734,10 @@ def phase_k2(dev):
 
     from hpgq_torch.api import filter_criteria
     from hpgq_torch.kernels import stats_cuda
-    from hpgq_torch.kernels.stats_cuda import batch_partials_cuda_long
+    from hpgq_torch.kernels.stats_cuda import (
+        batch_partials_cuda_long,
+        prepare_k2,
+    )
     from hpgq_torch.kernels.stats_torch import fused_partials
 
     crits = {name: filter_criteria(**kw) for name, kw in FILTERS.items()}
@@ -775,6 +828,7 @@ def phase_k2(dev):
                 *t, lcap, 33, crit),
             lambda t=t, lcap=lcap, crit=crit: fused_partials(
                 *t, lcap, 33, crit),
+            lambda t=t, lcap=lcap, crit=crit: prepare_k2(*t, lcap, 33, crit),
             "stats_k2_", 2 * nbases + 5 * Bt + output_bytes(Bt, lcap, Bt),
             nbases, launches_per_call=1 if crit is None else 2)
     res = out["512x32768, no filter (one sweep)"]
@@ -1472,9 +1526,9 @@ def rank_job(job):
     ``sharded=True`` (the API for ``stats`` and ``cgr``, the CLI for
     ``filter`` and ``edit``); per run, each rank writes
     ``<run>.rank<r>.json`` (its device, the world size, the launches, the
-    tiers, the seconds, the wall-clock time of its first stats batch,
-    whether jax or ``hpgq`` is loaded) and dumps its counters or tables
-    for the parent to check."""
+    tiers, the seconds, the wall-clock time of its first stats batch, the
+    launcher's start-up stamps of the rank, whether jax or ``hpgq`` is
+    loaded) and dumps its counters or tables for the parent to check."""
     for name in BLOCKED:  # a rank of launch() blocked them on import too
         sys.modules[name] = None
     import contextlib
@@ -1483,7 +1537,7 @@ def rank_job(job):
 
     import hpgq_torch
     from hpgq_torch.cli.main import main as cli
-    from hpgq_torch.dist import mesh
+    from hpgq_torch.dist import launch, mesh
     from hpgq_torch.kernels import step
     from hpgq_torch.pipeline import session
     from hpgq_torch.utils.checkpoint import save_counters_checkpoint
@@ -1536,6 +1590,7 @@ def rank_job(job):
                 "tiers": dict(step.WIRE_BATCHES),
                 "secs": time.perf_counter() - t0,
                 "first_batch": first[0] if first else None,
+                "stamps": launch.STAMPS,
                 "jax": [n for n in BLOCKED
                         if sys.modules.get(n) is not None]}, f)
 
@@ -1598,7 +1653,9 @@ def spawn_ranks(devices, runs, tmp, timeout=600):
     script first, which blocks jax and ``hpgq`` there.  A run of more than
     ``timeout`` seconds fails the phase (the launcher stops the ranks).
     Returns ``{run name: [result of each rank]}``, each with
-    ``launched_at``, the wall-clock time the launch started."""
+    ``launched_at``, the wall-clock time the launch started, and
+    ``parent``, the launcher's stamps in the parent (``start_s``: seconds
+    in the ranks' ``Process.start()``)."""
     import signal
 
     from hpgq_torch.dist.launch import launch
@@ -1613,16 +1670,17 @@ def spawn_ranks(devices, runs, tmp, timeout=600):
 
     old = signal.signal(signal.SIGALRM, late)
     signal.alarm(timeout)
+    parent = {}
     t0 = time.time()
     try:
-        launch(rank_job, (job,), devices)
+        launch(rank_job, (job,), devices, stamps=parent, kernels=True)
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, old)
     results = _rank_results(work, runs, len(devices))
     for ranks in results.values():
         for r in ranks:
-            r["launched_at"] = t0
+            r.update(launched_at=t0, parent=parent)
     return results
 
 
@@ -1758,18 +1816,59 @@ def startup_s(ranks):
     return min(firsts) - ranks[0]["launched_at"]
 
 
+def startup_split(ranks):
+    """Rank 0's start-up split by stage (``hpgq_torch.dist.launch``'s
+    ``launch-*`` stages, from the launcher's stamps and the rank's first
+    stats batch), as text; the stages must sum to rank 0's own seconds
+    from the launch to its first batch within 0.1 s."""
+    from hpgq_torch.dist.launch import startup_stages
+
+    r0 = next(r for r in ranks if r["rank"] == 0)
+    stages = startup_stages(dict(r0["stamps"],
+                                 first_batch=r0["first_batch"]))
+    own = r0["first_batch"] - r0["launched_at"]
+    check(len(stages) == 6 and abs(sum(stages.values()) - own) <= 0.1,
+          "rank 0's start-up stages %s sum to %.3f s, not to its %.3f s "
+          "from the launch to its first batch"
+          % (stages, sum(stages.values()), own))
+    return "rank 0 %.2f s = %s (the parent's Process.start() %.3f s)" % (
+        own, " + ".join("%s %.3f" % (k[len("launch-"):], v)
+                        for k, v in stages.items()),
+        r0["parent"]["start_s"])
+
+
+def stats_in_process(path, outdir, device="cuda"):
+    """``hpgq_torch.stats(path, sharded=True)`` with the bench filter on
+    ``device`` at world size 1 in this process, with no launcher (no
+    group), as on a one-card host.  Where several cards are visible, the API would start
+    a rank on each (the launched runs of phase 13 cover that), so the
+    rank plan is held to ``cuda:0`` for this call."""
+    import torch
+
+    import hpgq_torch
+    from hpgq_torch.dist import mesh
+
+    plan = mesh.rank_devices
+    if torch.cuda.device_count() > 1:
+        mesh.rank_devices = lambda opts, device="cuda": [
+            torch.device("cuda", 0)]
+    try:
+        return hpgq_torch.stats(path, outdir=outdir, device=device,
+                                sharded=True, **BENCH_FILTER)
+    finally:
+        mesh.rank_devices = plan
+
+
 def sharded_world1(m1, recs1, outdir, device, tmp):
     """World size 1: in this process with no launcher (no group), and in
     one subprocess with the launcher's variables (a gloo group of one over
     ``env://``); ``stats`` with the bench filter, each equal to the
     reference.  Returns (counters, launches, the subprocess's result)."""
-    import hpgq_torch
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     want = cached_reference(reference_stats, recs1, **BENCH_FILTER)
     reset_counts()
-    got = hpgq_torch.stats(m1, outdir=outdir, device=device, sharded=True,
-                           **BENCH_FILTER)
+    got = stats_in_process(m1, outdir, device)
     launches = launch_counts()
     assert_counters_equal(got, want, "sharded stats, world size 1")
     (res,) = launcher_variables_rank(
@@ -2021,8 +2120,6 @@ def phase_sharded(tmp, smi, ranks=None):
     entries and of K2 on these paths."""
     import torch
 
-    import hpgq_torch
-
     cards = torch.cuda.device_count()
     world = ranks or (cards if cards > 1 else 2)
     m1, recs1 = bench_corpus(tmp)
@@ -2071,8 +2168,7 @@ def phase_sharded(tmp, smi, ranks=None):
         % (world, time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    hpgq_torch.stats(m1, outdir=tempfile.mkdtemp(dir=tmp), device="cuda",
-                     sharded=True, **BENCH_FILTER)
+    stats_in_process(m1, tempfile.mkdtemp(dir=tmp))
     torch.cuda.synchronize()
     s1 = time.perf_counter() - t0
     sl = one["stats, warm"][0]["secs"]
@@ -2085,6 +2181,9 @@ def phase_sharded(tmp, smi, ranks=None):
         % (len(recs1) / s1, s1, len(recs1) / sl, sl, world, cards,
            len(recs1) / sn, sn, startup_s(one["stats"]),
            startup_s(res2["stats"]), world, smi))
+    for n, ranks in ((1, one["stats"]), (world, res2["stats"])):
+        say("sharded", "start-up by stage, world size %d: %s; on %s"
+            % (n, startup_split(ranks), smi))
 
     def total(kernel, *names):
         return sum(r["launches"][kernel] for n in names for r in res2[n])

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.counters import StatsCounters
+from ..device import resolve_device
 
 from ..kernels.stats_torch import MIN_LENGTH_INIT, zero_partials
 from ..kernels.step import make_stats_step, make_stats_step2u
@@ -23,12 +24,13 @@ from ..kernels.step import make_stats_step, make_stats_step2u
 _FLOAT_KEYS = ("acc_quality", "acc_quality_comp")
 
 
-def resolve_wire(wire=None, device="cpu"):
+def resolve_wire(wire=None, device="cuda"):
     """'bitpack' | None.  Precedence: an explicit format, then the
     ``HPGQ_WIRE`` environment variable (bitpack|off), then the device
     default: bitpack on CUDA (fewest bytes over the host link), plain
-    tensors on the CPU.  The JAX package's ``fused4``/``pack4`` wires are
-    not ported."""
+    tensors on the CPU.  Only the device's type is read: no tensor is
+    made.  The JAX package's ``fused4``/``pack4`` wires are not
+    ported."""
     w = wire
     if w in (None, "auto"):
         w = os.environ.get("HPGQ_WIRE", "auto")
@@ -107,11 +109,11 @@ def fold_partials(c: StatsCounters, host: dict) -> None:
 class DeviceAccumulator:
     """Streaming stats accumulator: device steps + a host fold at flush."""
 
-    def __init__(self, lcap: int, phred: int, crit=None, device="cpu",
+    def __init__(self, lcap: int, phred: int, crit=None, device="cuda",
                  wire="auto", kmers_on: bool = False):
         self.lcap = lcap
         self.phred = phred
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._crit = crit
         self.kmers_on = kmers_on
         self.counters = self._zero_counters()

@@ -13,9 +13,16 @@ rendezvous in a private temporary directory, so no TCP port is raced for.
 The parent waits for every rank and gets rank 0's return value back; a
 rank that exits non-zero stops the others at once (no rank is left
 waiting in a collective until :data:`~hpgq_torch.dist.mesh.TIMEOUT`), and
-so do Ctrl-C and SIGTERM to the parent.  Each rank also dies with the
-parent.  :func:`run_sharded` is the entry points' route: the CLI's
-commands, the legacy flags, the API and ``cgr_run.run_cgr``.
+so do Ctrl-C and SIGTERM to the parent.  The ranks leave Ctrl-C to the
+parent (a terminal's Ctrl-C reaches the whole process group), so a rank
+inside a gloo call is stopped by the parent and not left to the
+interrupt.  Each rank also dies with the parent.  :func:`run_sharded` is
+the entry points' route: the CLI's commands, the legacy flags, the API
+and ``cgr_run.run_cgr``.
+
+Each rank stamps its start-up (:data:`STAMPS`), and :func:`run_sharded`
+hands rank 0's split to the caller's timers as ``launch-*`` stages
+(:func:`startup_stages`), which ``--t`` prints.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import signal
 import sys
 import tempfile
 import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -42,6 +50,22 @@ _log = logging.getLogger("hpgq")
 # seconds a rank has to exit after SIGTERM before it is killed
 _GRACE_S = 5.0
 _PR_SET_PDEATHSIG = 1
+
+# This rank's start-up, wall-clock seconds: "launch" (the parent's
+# launch() began), "process" (this process was made), "main" (_rank_main
+# entered: the interpreter, torch and hpgq_torch imported), "join" (the
+# gloo group joined), "cuda" (the CUDA context made on the rank's card;
+# nothing to make on the CPU), "load" (the kernel library, where the
+# target launches K1 or K2 on a card, and the native packer loaded).
+STAMPS = {}
+# the start-up stages: (name, from stamp, to stamp); "first_batch" is the
+# caller's stamp of the rank's first batch
+STAGES = (("launch-spawn", "launch", "process"),
+          ("launch-imports", "process", "main"),
+          ("launch-join", "main", "join"),
+          ("launch-cuda", "join", "cuda"),
+          ("launch-load", "cuda", "load"),
+          ("launch-first-batch", "load", "first_batch"))
 
 
 class RankFailed(RuntimeError):
@@ -60,34 +84,46 @@ def local_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def launch(target, args=(), devices=None):
+def launch(target, args=(), devices=None, stamps=None, kernels=False):
     """Run ``target(*args)`` as ``len(devices)`` ranks of one gloo group,
     rank ``r`` on ``devices[r]`` (default: :func:`local_devices`); return
     rank 0's return value.  ``target`` and ``args`` must pickle, and
-    ``target`` must be importable in a new interpreter.  Raises
+    ``target`` must be importable in a new interpreter.  A rank on a card
+    makes its CUDA context, and with ``kernels`` (the target launches K1
+    or K2) loads the kernel library, before ``target`` runs.  Raises
     :class:`RankFailed` when a rank exits non-zero, after stopping the
-    others."""
+    others.  ``stamps``, a dict, gets the parent's part of the start-up:
+    ``launch`` (the wall-clock time of this call) and ``start_s`` (the
+    seconds spent in the ranks' ``Process.start()``)."""
+    launched = time.time()
     devices = [torch.device(d) for d in (devices or local_devices())]
     if not devices:
         raise ValueError("launch: no device to run a rank on")
     ctx = multiprocessing.get_context("spawn")
     work = tempfile.mkdtemp(prefix="hpgq_torch_ranks_")
     procs = []
-    restore = _trap_sigterm()
+    started = 0.0
+    hold, restore = _trap_signals()
     try:
         for r, dev in enumerate(devices):
             p = ctx.Process(target=_rank_main, name="hpgq_torch rank %d" % r,
                             args=(target, tuple(args), r, len(devices),
-                                  str(dev), work, os.getpid()))
+                                  str(dev), work, os.getpid(), launched,
+                                  kernels))
+            t = time.perf_counter()
             p.start()
+            started += time.perf_counter() - t
             procs.append(p)
+        if stamps is not None:
+            stamps.update(launch=launched, start_s=started)
         _wait_all(procs)
         with open(os.path.join(work, "result.pkl"), "rb") as f:
             return pickle.load(f)
     finally:
+        hold()  # a signal from here on waits until the ranks are stopped
         _stop(procs)
         shutil.rmtree(work, ignore_errors=True)
-        restore()  # last: it may pass a SIGTERM on
+        restore()  # last: it may pass a signal on
 
 
 def _wait_all(procs) -> None:
@@ -105,12 +141,14 @@ def _wait_all(procs) -> None:
 
 def _stop(procs) -> None:
     """SIGTERM to every rank still running, SIGKILL to any that outlives
-    the grace period; every rank reaped."""
+    the grace period (one for all: they got SIGTERM together); every rank
+    reaped."""
     for p in procs:
         if p.exitcode is None:
             p.terminate()
+    deadline = time.monotonic() + _GRACE_S
     for p in procs:
-        p.join(_GRACE_S)
+        p.join(max(0.0, deadline - time.monotonic()))
         if p.exitcode is None:
             p.kill()
             p.join()
@@ -124,28 +162,47 @@ class _Terminated(SystemExit):
         super().__init__(128 + signal.SIGTERM)
 
 
-def _trap_sigterm():
-    """Turn SIGTERM into :class:`_Terminated` while the ranks run (main
-    thread only); returns the undo, which passes a caught SIGTERM on to
-    the handler that was there before."""
+def _trap_signals():
+    """While the ranks run, SIGTERM raises :class:`_Terminated` and SIGINT
+    ``KeyboardInterrupt`` in the waiting main thread, so that ``launch``'s
+    ``finally`` stops the ranks.  Returns ``(hold, restore)``: after
+    ``hold()`` either signal is only noted, so that none cuts the stop
+    short; ``restore()`` puts the handlers back and passes on, to the
+    handler that was there before, a SIGTERM caught at any time and a
+    SIGINT caught while held.  A signal the process ignores stays ignored.
+    Main thread only (elsewhere both do nothing)."""
     if threading.current_thread() is not threading.main_thread():
-        return lambda: None
-    caught = []
+        return (lambda: None), (lambda: None)
+    caught, held, prev = [], [], {}
 
-    def on_term(signum, frame):
-        caught.append(signum)
-        raise _Terminated()
+    def on_signal(signum, frame):
+        caught.append((signum, bool(held)))
+        if not held:
+            raise (_Terminated() if signum == signal.SIGTERM
+                   else KeyboardInterrupt())
 
-    prev = signal.signal(signal.SIGTERM, on_term)
-    if prev is None:  # a handler set outside Python: SIGTERM's default
-        prev = signal.SIG_DFL
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        old = signal.getsignal(sig)
+        if old is not signal.SIG_IGN:
+            # None: a handler set outside Python, taken as the default
+            prev[sig] = signal.SIG_DFL if old is None else old
+            signal.signal(sig, on_signal)
 
     def restore():
-        signal.signal(signal.SIGTERM, prev)
-        if caught:  # the ranks are stopped: now the parent's own handling
-            signal.raise_signal(signal.SIGTERM)
+        for sig, old in prev.items():
+            signal.signal(sig, old)
+        passed = [sig for sig, was_held in caught
+                  if was_held or sig == signal.SIGTERM]
+        if passed:  # the ranks are stopped: now the parent's own handling
+            signal.raise_signal(passed[0])
 
-    return restore
+    return (lambda: held.append(True)), restore
+
+
+def _parent_takes_ctrl_c(signum, frame):
+    """A rank's SIGINT handler: nothing.  Ctrl-C at a terminal reaches the
+    parent too, which stops every rank; a rank interrupted on its own,
+    maybe inside a gloo call, would only leave the others waiting."""
 
 
 def _die_with_parent(parent: int) -> None:
@@ -160,18 +217,67 @@ def _die_with_parent(parent: int) -> None:
         os._exit(1)
 
 
-def _rank_main(target, args, rank, world, device, work, parent):
+def _process_start():
+    """The wall-clock time this process was made: field 22 of
+    ``/proc/self/stat`` (clock ticks after boot) set against
+    ``/proc/uptime`` read now (``btime`` of ``/proc/stat`` has whole
+    seconds only; the uptime is to 0.01 s).  None without those files."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return time.time() - up + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def startup_stages(stamps) -> dict:
+    """``{stage: seconds}`` of one rank's start-up, in :data:`STAGES`'
+    order, from its :data:`STAMPS` and its ``first_batch``; a stage whose
+    stamps are missing is left out.  The stages follow one another, so
+    they sum to the time from the launch to the rank's first batch."""
+    return {name: stamps[b] - stamps[a] for name, a, b in STAGES
+            if stamps.get(a) is not None and stamps.get(b) is not None}
+
+
+def _ready(dev, kernels: bool) -> None:
+    """Make the CUDA context on the rank's card, then load the kernel
+    library (``kernels``, on a card) and the native packer, stamping each:
+    work the rank's first batch would do, done before it so that the
+    start-up splits by stage."""
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize(dev)
+    STAMPS["cuda"] = time.time()
+    if kernels and dev.type == "cuda":
+        from ..kernels import build
+
+        build.load()
+    from ..io import native
+
+    native.get_lib()
+    STAMPS["load"] = time.time()
+
+
+def _rank_main(target, args, rank, world, device, work, parent, launched,
+               kernels):
     """A rank's process: the launcher's variables, the group over the
-    ``file://`` rendezvous, this rank's device, ``target(*args)``; rank 0's
-    return value pickled for the parent."""
+    ``file://`` rendezvous, this rank's device made ready, ``target(*args)``;
+    rank 0's return value pickled for the parent."""
+    STAMPS.update(launch=launched, process=_process_start(),
+                  main=time.time())
+    signal.signal(signal.SIGINT, _parent_takes_ctrl_c)
     _die_with_parent(parent)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(work, "rendezvous"),
         rank=rank, world_size=world, timeout=mesh.TIMEOUT)
+    STAMPS["join"] = time.time()
     try:
-        mesh.initialize_distributed(device, rank_device=device)
+        pg = mesh.initialize_distributed(device, rank_device=device)
+        _ready(pg.device, kernels)
         result = target(*args)
         if rank == 0:
             tmp = os.path.join(work, "result.pkl.tmp")
@@ -189,16 +295,22 @@ def run_sharded(runner, opts, timers=None, device="cuda", **kw):
     (one of :mod:`~hpgq_torch.dist.run_dist`'s ``run_*_sharded``) in this
     process where :func:`~hpgq_torch.dist.mesh.rank_devices` gives one
     device, else as one rank on each of its devices.  Returns rank 0's
-    result; ``timers`` gets rank 0's stage totals and counts.  Log lines
-    go where this process's go, from rank 0; the other ranks print only
-    warnings and errors."""
+    result; ``timers`` gets rank 0's stage totals and counts, and its
+    start-up split (``launch-*``, :func:`startup_stages`, ending at its
+    first ``compute`` stage) with ``launch-start``, the parent's seconds
+    in ``Process.start()``.  Log lines go where this process's go, from
+    rank 0; the other ranks print only warnings and errors."""
     devices = mesh.rank_devices(opts, device)
     if len(devices) == 1:
         return runner(opts, timers, device=devices[0], **kw)
+    stamps = {}
     result, counts = launch(_rank_run, (runner, opts, kw, _log_setup()),
-                            devices)
+                            devices, stamps=stamps,
+                            kernels=opts.command_name == "stats")
     if timers is not None:
         timers.totals.update(counts["totals"])
+        timers.totals["launch-start"] = stamps["start_s"]
+        timers.totals.update(startup_stages(counts["startup"]))
         for k in ("num_batches", "total_reads", "total_bytes"):
             setattr(timers, k, counts[k])
     return result
@@ -226,8 +338,9 @@ def _log_setup():
 
 def _rank_run(runner, opts, kw, log):
     """The rank side of :func:`run_sharded`: returns ``(result, timer
-    counts)``.  The CLI's errors exit 255 after one ``Error:`` line, as
-    ``main()`` prints them."""
+    counts)``, the counts with this rank's start-up stamps, its first
+    batch the first entry into the ``compute`` stage.  The CLI's errors
+    exit 255 after one ``Error:`` line, as ``main()`` prints them."""
     from ..device import DeviceUnavailable
     from ..io.fastq import FastqParseError
     from ..utils.timers import StageTimers
@@ -254,4 +367,6 @@ def _rank_run(runner, opts, kw, log):
         sys.exit(255)
     return result, {"totals": timers.totals, "num_batches": timers.num_batches,
                     "total_reads": timers.total_reads,
-                    "total_bytes": timers.total_bytes}
+                    "total_bytes": timers.total_bytes,
+                    "startup": dict(STAMPS,
+                                    first_batch=timers.first.get("compute"))}

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import BASE_A, BASE_G, BASE_T, DEFAULT_CGR_K
+from ..device import resolve_device
 from .wire_torch import wire_unbits
 
 
@@ -79,8 +80,10 @@ def cgr_batch_tables(codes, quals, lens, valid, k: int, phred: int):
     return hist(ones.expand(B * W)), hist(weight), ok.sum()
 
 
-def zero_cgr_acc(k: int, device="cpu") -> dict:
-    """Zeroed int64 accumulator: ``table_seq``, ``table_q``, ``words``."""
+def zero_cgr_acc(k: int, device="cuda") -> dict:
+    """Zeroed int64 accumulator on ``device``: ``table_seq``, ``table_q``,
+    ``words``."""
+    device = resolve_device(device)
     dim = 1 << k
     return {
         "table_seq": torch.zeros((dim, dim), dtype=torch.int64, device=device),

@@ -177,6 +177,49 @@ def batch_partials_cuda(codes, quals, lens, valid, lcap: int, phred: int,
     ``codes`` int8 [B, L], ``quals`` uint8 [B, L], ``lens`` int32 [B],
     ``valid`` bool [B], all contiguous on one CUDA device; ``L <= lcap <=
     4096``.  Raises on anything else, and if the launch is refused."""
+    launch, finish = prepare_k1(codes, quals, lens, valid, lcap, phred,
+                                crit)
+    if launch():
+        _count("K1")
+    return finish()
+
+
+def batch_partials_cuda_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,
+                           phred: int, crit=None) -> dict:
+    """Launch K1's 2u entry on ``torch.cuda.current_stream()``: the
+    partials of :func:`batch_partials_cuda` over the decoded batch, read
+    straight from the 2u wire (``buf`` uint8 [B, W], ``exc`` int32
+    exceptions in ascending order as the packers write them, ``pal`` uint8
+    [4]; rows below ``n_valid`` have length ``L``)."""
+    launch, finish = prepare_k1_2u(buf, exc, pal, n_valid, L, lcap, phred,
+                                   crit)
+    if launch():
+        _count("K1 2u")
+    return finish()
+
+
+def batch_partials_cuda_long(codes, quals, lens, valid, lcap: int,
+                             phred: int, crit=None) -> dict:
+    """Launch K2 on ``torch.cuda.current_stream()``: the contract of
+    :func:`batch_partials_cuda` for any ``L <= lcap`` (no upper limit).
+    Raises on bad inputs, and if a launch is refused."""
+    launch, finish = prepare_k2(codes, quals, lens, valid, lcap, phred, crit)
+    if launch():
+        _count("K2")
+    return finish()
+
+
+# The wrappers above in two halves, ``(launch, finish)``: the checks and
+# the zeroed outputs (and K1's 16-byte row padding) come first;
+# ``launch()`` is the raw launch alone, on the current stream at its call,
+# counts nothing and returns whether a kernel went (an empty batch sends
+# none); ``finish()`` returns the partials.  The kernels add into their
+# outputs and elect a last block through a counter in them, so each launch
+# needs outputs of its own: one prepare, one launch.  A timer can put CUDA
+# events around ``launch()`` alone.
+
+def prepare_k1(codes, quals, lens, valid, lcap: int, phred: int, crit=None):
+    """K1's plain entry, ready to launch (see above)."""
     if lcap > MAX_LCAP:
         raise ValueError("K1 takes lcap <= %d, got %d; longer reads go "
                          "through K2 (batch_partials_cuda_long)"
@@ -187,30 +230,30 @@ def batch_partials_cuda(codes, quals, lens, valid, lcap: int, phred: int,
 
     lib = load()
     out, tiles, acc_q = _k1_outputs(lib, dev, 0, B, L, lcap, 0)
-    if B:
-        # the kernel stages rows by 16-byte copies: rows of a multiple of
-        # 16 bytes, 16-byte aligned (the packers' widths are already)
-        ld = -(-max(L, 1) // 16) * 16
-        if ld != L or codes.data_ptr() % 16 or quals.data_ptr() % 16:
-            codes = torch.nn.functional.pad(codes, (0, ld - L))
-            quals = torch.nn.functional.pad(quals, (0, ld - L))
+    # the kernel stages rows by 16-byte copies: rows of a multiple of 16
+    # bytes, 16-byte aligned (the packers' widths are already)
+    ld = -(-max(L, 1) // 16) * 16
+    if B and (ld != L or codes.data_ptr() % 16 or quals.data_ptr() % 16):
+        codes = torch.nn.functional.pad(codes, (0, ld - L))
+        quals = torch.nn.functional.pad(quals, (0, ld - L))
+
+    def launch() -> bool:
+        if not B:
+            return False
         _raise_if(lib.hpgq_k1_launch(
             codes.data_ptr(), quals.data_ptr(), lens.data_ptr(),
             valid.data_ptr(), B, L, ld, lcap, crit_struct(crit, phred),
             *out.ptrs(), out.bt.data_ptr(), tiles.data_ptr(),
             acc_q.data_ptr(), out.passed.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "K1", lib)
-        _count("K1")
-    return out.partials(acc_q, out.bt, crit)
+        return True
+
+    return launch, lambda: out.partials(acc_q, out.bt, crit)
 
 
-def batch_partials_cuda_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,
-                           phred: int, crit=None) -> dict:
-    """Launch K1's 2u entry on ``torch.cuda.current_stream()``: the
-    partials of :func:`batch_partials_cuda` over the decoded batch, read
-    straight from the 2u wire (``buf`` uint8 [B, W], ``exc`` int32
-    exceptions in ascending order as the packers write them, ``pal`` uint8
-    [4]; rows below ``n_valid`` have length ``L``)."""
+def prepare_k1_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,
+                  phred: int, crit=None):
+    """K1's 2u entry, ready to launch (see above)."""
     if lcap > MAX_LCAP or L > lcap:
         raise ValueError("the K1 2u entry takes L <= lcap <= %d, got L %d, "
                          "lcap %d" % (MAX_LCAP, L, lcap))
@@ -229,22 +272,24 @@ def batch_partials_cuda_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,
 
     lib = load()
     out, tiles, acc_q = _k1_outputs(lib, dev, 1, B, L, lcap, W)
-    if B:
+
+    def launch() -> bool:
+        if not B:
+            return False
         _raise_if(lib.hpgq_k1_launch_2u(
             buf.data_ptr(), exc.data_ptr(), exc.shape[0], pal.data_ptr(),
             n_valid, B, W, L, lcap, crit_struct(crit, phred), *out.ptrs(),
             out.bt.data_ptr(), tiles.data_ptr(), acc_q.data_ptr(),
             out.passed.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "K1 2u", lib)
-        _count("K1 2u")
-    return out.partials(acc_q, out.bt, crit)
+        return True
+
+    return launch, lambda: out.partials(acc_q, out.bt, crit)
 
 
-def batch_partials_cuda_long(codes, quals, lens, valid, lcap: int,
-                             phred: int, crit=None) -> dict:
-    """Launch K2 on ``torch.cuda.current_stream()``: the contract of
-    :func:`batch_partials_cuda` for any ``L <= lcap`` (no upper limit).
-    Raises on bad inputs, and if a launch is refused."""
+def prepare_k2(codes, quals, lens, valid, lcap: int, phred: int, crit=None):
+    """K2, ready to launch (see above): ``launch()`` sends launch A, and B
+    with criteria."""
     dev = _cuda_device("K2", codes)
     B, L = _check_rows(codes, quals, lens, valid, lcap)
     from .build import load
@@ -252,16 +297,21 @@ def batch_partials_cuda_long(codes, quals, lens, valid, lcap: int,
     lib = load()
     out = _Outputs(dev, lcap, B, B, lib.hpgq_k2_scratch_slots(B))
     out.scal[_MIN_LEN] = MIN_LENGTH_INIT
-    if B:
+
+    def launch() -> bool:
+        if not B:
+            return False
         _raise_if(lib.hpgq_k2_launch(
             codes.data_ptr(), quals.data_ptr(), lens.data_ptr(),
             valid.data_ptr(), B, L, lcap, crit_struct(crit, phred),
             *out.ptrs(), out.scratch.data_ptr(), out.f32.data_ptr(),
             out.passed.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream), "K2", lib)
-        _count("K2")
+        return True
+
     # f32 per-row means summed in a fixed order -> the same value every run
-    return out.partials(out.f32.sum(), out.bpn.sum(dim=1), crit)
+    return launch, lambda: out.partials(out.f32.sum(), out.bpn.sum(dim=1),
+                                        crit)
 
 
 def batch_partials_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,

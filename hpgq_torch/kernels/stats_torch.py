@@ -39,13 +39,18 @@ from ..constants import (
     PHRED33,
 )
 from ..core.counters import GC_BINS, QUAL_BINS
+from ..device import resolve_device
 
 MIN_LENGTH_INIT = 100000  # reference init, src/stats_fastq.c:24
 
 
-def zero_partials(lcap: int, kmers_on: bool = False, device="cpu") -> dict:
+def zero_partials(lcap: int, kmers_on: bool = False, device="cuda") -> dict:
     """Zeroed accumulator dict on ``device`` (int64 except ``acc_quality*``),
-    with the ``kmer_counts`` / ``kmer_per_nt`` fields when ``kmers_on``."""
+    with the ``kmer_counts`` / ``kmer_per_nt`` fields when ``kmers_on``.
+    Raises :class:`~hpgq_torch.device.DeviceUnavailable` for a CUDA device
+    this machine lacks."""
+    device = resolve_device(device)
+
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int64, device=device)
 

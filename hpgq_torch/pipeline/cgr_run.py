@@ -23,7 +23,6 @@ import threading
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..constants import (
     CGR_DIFF_PGM_SUFFIX,
@@ -65,11 +64,11 @@ class CgrSession:
     """Streaming CGR accumulation: int64 host tables, one device table
     update per block."""
 
-    def __init__(self, k: int, phred: int, batch_reads: int, device="cpu"):
+    def __init__(self, k: int, phred: int, batch_reads: int, device="cuda"):
         self.k = k
         self.phred = phred
         self.batch_reads = batch_reads
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         dim = 1 << k
         self.table_seq = np.zeros((dim, dim), dtype=np.int64)
         self.table_q = np.zeros((dim, dim), dtype=np.int64)

@@ -25,6 +25,7 @@ import threading
 import torch
 
 from ..core.counters import StatsCounters
+from ..device import resolve_device
 from ..io.packer import (
     bucket_rows,
     pack_block,
@@ -95,12 +96,12 @@ def payload_len(payload) -> int:
 class StatsSession:
     """Streaming single-end stats accumulation with length growth."""
 
-    def __init__(self, phred, crit=None, batch_reads=16384, device="cpu",
+    def __init__(self, phred, crit=None, batch_reads=16384, device="cuda",
                  lcap: int = 128, wire="auto", kmers_on: bool = False):
         self.phred = phred
         self.crit = crit
         self.batch_reads = batch_reads
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.wire = wire
         self.kmers_on = kmers_on
         self.acc = DeviceAccumulator(lcap, phred, crit, self.device, wire,
@@ -157,12 +158,12 @@ class PairedStatsSession:
     int64 device accumulators fold into two host counters at :meth:`flush`
     only, since int64 state needs no overflow window."""
 
-    def __init__(self, phred, crit=None, batch_reads=16384, device="cpu",
+    def __init__(self, phred, crit=None, batch_reads=16384, device="cuda",
                  lcap: int = 128, wire="auto", kmers_on: bool = False):
         self.phred = phred
         self.crit = crit
         self.batch_reads = batch_reads
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.wire = resolve_wire(wire, self.device)
         self.kmers_on = kmers_on
         self._zero_counters()
@@ -298,11 +299,11 @@ class ShapeCachedFn:
 
     _PAL_MISS_LIMIT = 3
 
-    def __init__(self, fn, batch_reads: int, device="cpu",
+    def __init__(self, fn, batch_reads: int, device="cuda",
                  qn_ok: bool = False):
         self._fn = fn
         self.batch_reads = batch_reads
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.wire = resolve_wire(None, self.device)
         self._qn = qn_ok and os.environ.get("HPGQ_QN_WIRE", "1") != "0"
         self._pal_miss = 0

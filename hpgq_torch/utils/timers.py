@@ -1,5 +1,8 @@
 """The port's own copy of ``hpgq/utils/timers.py`` (the port imports nothing of
-``hpgq``); kept equal to it.
+``hpgq``), with two additions: each stage's first entry is stamped
+(``first``: a launched rank's first batch ends its start-up split), and
+the report also prints the stages beyond the reference's list (a sharded
+run's ``vote``, ``finish-merge`` and ``launch-*`` stages).
 
 Per-stage wall-clock timers (the reference's --t instrumentation,
 ``old/main_hpg_fastq_old.c:49-80,741-763``) adapted to the TPU pipeline's
@@ -19,11 +22,14 @@ class StageTimers:
         self.num_batches = 0
         self.total_reads = 0
         self.total_bytes = 0
+        self.first = {}  # stage -> wall-clock time of its first entry
         self._t0 = time.perf_counter()
         self._lock = threading.Lock()  # stages accumulate from pool workers
 
     @contextmanager
     def stage(self, name: str):
+        if name not in self.first:
+            self.first.setdefault(name, time.time())
         t = time.perf_counter()
         try:
             yield
@@ -41,6 +47,8 @@ class StageTimers:
         wall-clock `total()` remains this timer's own."""
         for k, v in other.totals.items():
             self.totals[k] = self.totals.get(k, 0.0) + v
+        for k, v in other.first.items():
+            self.first[k] = min(v, self.first.get(k, v))
         self.num_batches += other.num_batches
         self.total_reads += other.total_reads
         self.total_bytes += other.total_bytes
@@ -64,8 +72,9 @@ class StageTimers:
             )
         print("total time            (s): \t%10.5f" % total, file=out)
         print("", file=out)
-        for name in ("read", "pack", "h2d", "compute", "write", "checkpoint",
-                     "reporting"):
+        named = ("read", "pack", "h2d", "compute", "write", "checkpoint",
+                 "reporting")
+        for name in named + tuple(k for k in self.totals if k not in named):
             if name in self.totals:
                 t = self.totals[name]
                 print(

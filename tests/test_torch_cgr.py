@@ -153,10 +153,10 @@ def test_wire_entry_matches_plain(tmp_path, monkeypatch, tier):
                                   allow6=True)
             assert {2: "2q", 6: "6bit", 7: "7bit"}[
                 bitwire_kind(buf.shape[1])[0]] == tier
-            got = wire(cgr_torch.zero_cgr_acc(k), torch.from_numpy(buf))
+            got = wire(cgr_torch.zero_cgr_acc(k, "cpu"), torch.from_numpy(buf))
             want = _jax_tables(h_pack_block(hblock, max_len=128), k)
             arrs = [torch.from_numpy(a) for a in h_pack_block(hblock)]
-            ref = plain(cgr_torch.zero_cgr_acc(k), *arrs)
+            ref = plain(cgr_torch.zero_cgr_acc(k, "cpu"), *arrs)
             for acc in (got, ref):
                 np.testing.assert_array_equal(acc["table_seq"].numpy(),
                                               want[0])
@@ -178,7 +178,7 @@ def test_from_jax_cgr_acc():
     conv = from_jax_cgr_acc({key: np.asarray(v) for key, v in hacc.items()},
                             "cpu")
     step = cgr_torch.make_cgr_step(k, 33)
-    acc = cgr_torch.zero_cgr_acc(k)
+    acc = cgr_torch.zero_cgr_acc(k, "cpu")
     for b in (b1, b2):
         acc = step(acc, *(torch.from_numpy(a) for a in b))
     assert set(conv) == set(acc)

@@ -13,13 +13,15 @@ counters equal (every integer field exact, ``acc_quality`` as
 report's ``Mean quality`` line to 1e-3 relative, as
 ``tests/test_torch_pipeline.py`` allows).  Then the entry points: the CLI
 and the API reach the launcher, parse once in the parent and print one
-RESULTS block; a bad option starts no rank.  Failures, the choice of the
-world size and resume are in ``tests/test_torch_launch_resume.py``.
+RESULTS block; a bad option starts no rank.  The choice of the world size
+and resume are in ``tests/test_torch_launch_resume.py``; failures and
+signals in ``tests/test_torch_launch_signals.py``.
 """
 
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -175,9 +177,10 @@ def _two_ranks(monkeypatch):
 def test_cli_launches_ranks(corpus, tmp_path):
     """``python -m hpgq_torch stats --sharded --t`` where ``rank_devices``
     plans two CPU ranks: exit 0, one PARAMETERS block, one RESULTS
-    block and one timer report (rank 0's batches), one log file with rank
-    0's lines after the parent's choice, and a report equal to the
-    one-process run's."""
+    block and one timer report (rank 0's batches, and its start-up split
+    into the ``launch-*`` stages, which fit in the run's time), one log
+    file with rank 0's lines after the parent's choice, and a report equal
+    to the one-process run's."""
     d, paths = corpus
     log = str(tmp_path / "log")
     argv = ["stats", "-f", paths[0], "--read-quality-range", "18,40",
@@ -205,6 +208,14 @@ def test_cli_launches_ranks(corpus, tmp_path):
     batches = int(p.stdout.split("number of batches     : ")[1].split()[0])
     mean = float(p.stdout.split("mean reads per batch  : ")[1].split()[0])
     assert 0 < n0 < 2400 and round(batches * mean) == n0, p.stdout
+    secs = {ln.split()[1]: float(ln.split()[4])
+            for ln in p.stdout.splitlines() if ln.startswith("total launch-")}
+    assert list(secs) == ["launch-start"] + [s[0] for s in launch.STAGES]
+    total = float(p.stdout.split("total time            (s): ")[1].split()[0])
+    chain = [secs[s[0]] for s in launch.STAGES]
+    # the process's start is read to 0.01 s; the other stamps are exact
+    assert min(chain[:2]) > -0.02 and min(chain[2:]) >= 0, secs
+    assert 0 < sum(chain) < total and secs["launch-start"] < total, secs
     with open(log) as f:
         text = f.read()
     assert text.index("--sharded: 2 ranks, as on two cards: cpu, cpu") \
@@ -215,6 +226,34 @@ def test_cli_launches_ranks(corpus, tmp_path):
                                        "--log-file", log])
     assert_same_tree(str(tmp_path / "ranks"), str(tmp_path / "one"),
                      reports=True)
+
+
+def test_process_start_stamp(tmp_path):
+    """A new interpreter's ``_process_start()`` falls between the moment
+    its parent started it and the child's first stamp of its own (to the
+    0.01 s that ``/proc`` gives); ``startup_stages`` splits a rank's
+    stamps in order, and the stages sum to its launch-to-first-batch
+    time."""
+    code = ("import sys, time\n"
+            "t = time.time()\n"
+            "sys.path.insert(0, %r)\n"
+            "from hpgq_torch.dist.launch import _process_start\n"
+            "print(t, _process_start())\n" % REPO)
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert p.returncode == 0, p.stderr[-2000:]
+    first, start = map(float, p.stdout.split())
+    assert t0 - 0.02 < start < first + 0.02, (t0, start, first)
+
+    stamps = dict(launch=10.0, process=10.25, main=12.0, join=12.5,
+                  cuda=13.0, load=13.25, first_batch=14.0)
+    got = launch.startup_stages(stamps)
+    assert list(got) == [s[0] for s in launch.STAGES]
+    assert list(got.values()) == [0.25, 1.75, 0.5, 0.5, 0.25, 0.75]
+    assert sum(got.values()) == stamps["first_batch"] - stamps["launch"]
+    del stamps["first_batch"]
+    assert "launch-first-batch" not in launch.startup_stages(stamps)
 
 
 def test_api_launches_ranks(corpus, tmp_path, monkeypatch):

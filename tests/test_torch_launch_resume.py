@@ -1,24 +1,21 @@
-"""The port's local launcher (``hpgq_torch.dist.launch``) when a rank
-fails or the parent is stopped, how many ranks an unlaunched ``--sharded``
-run gets (``mesh.rank_devices``), and a resume across the packages.
+"""How many ranks an unlaunched ``--sharded`` run gets
+(``mesh.rank_devices``), a launched run that Ctrl-C stopped and its resume,
+and a resume across the packages; a failed rank and a stopped parent are
+in ``tests/test_torch_launch_signals.py``.
 
-A failed rank or SIGTERM to the parent: the parent exits non-zero
-within 60 s, every rank is gone, the launcher's temporary directory too,
-and no report is written.  The world sizes: a launcher present, the CPU,
-one card, four cards, checkpoint sets of one and of several processes,
-plain gzip.  Then ``hpgq``'s one-process mesh is interrupted as
+The world sizes: a launcher present, the CPU, one card, four cards,
+checkpoint sets of one and of several processes, plain gzip.  Then
+``hpgq``'s one-process mesh is interrupted as
 ``tests/test_dist.py::test_sharded_stats_resume`` interrupts it, and the
 port resumes its checkpoint in one process and ends with ``hpgq``'s
 uninterrupted counters and report.
 """
 
+import glob
 import json
 import logging
 import os
 import signal
-import subprocess
-import sys
-import time
 
 import pytest
 import torch
@@ -28,79 +25,12 @@ from gen import make_fastq
 import hpgq.dist.run_dist as hdist
 import hpgq_torch
 from hpgq.options import StatsOptions as HStatsOptions
-from hpgq_torch.dist import mesh
+from hpgq_torch.dist import launch, mesh
 from hpgq_torch.options import CgrOptions, FilterOptions, StatsOptions
+from hpgq_torch.pipeline import run as prun
 from hpgq_torch.utils.checkpoint import save_counters_checkpoint
+from test_torch_launch_signals import _nothing_left, _stopped_launch
 from test_torch_multiproc import assert_same_tree
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TESTS = os.path.join(REPO, "tests")
-
-
-def _alive(pid: int) -> bool:
-    """A process that runs (not gone, not a zombie)."""
-    try:
-        with open("/proc/%d/stat" % pid) as f:
-            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-    except OSError:
-        return False
-
-
-STOPS = {  # how: (the signal to the parent, the rank target, its args)
-    "rank 1 raises": (None, "fail_on_rank_one",
-                      "StatsOptions(in_filename=FQ, out_dirname=OUT, "
-                      "batch_size=300), PIDS"),
-    "SIGTERM to the parent": (signal.SIGTERM, "wait_forever", "PIDS"),
-}
-
-
-@pytest.mark.parametrize("how", list(STOPS))
-def test_a_failure_stops_every_rank(tmp_path, how):
-    """Two CPU ranks; rank 1 raises while rank 0 waits in the merge, or
-    both wait and the parent gets SIGTERM.  The parent exits non-zero in
-    under 60 s, leaves no rank running and no temporary directory, and no
-    report is written."""
-    fq = str(tmp_path / "in.fq")
-    make_fastq(fq, 2000, min_len=40, max_len=110, seed=9)
-    out, pids, tmp = tmp_path / "out", tmp_path / "pids", tmp_path / "tmp"
-    for d in (out, pids, tmp):
-        d.mkdir()
-    sig, target, args = STOPS[how]
-    code = ("import sys\n"
-            "sys.path[:0] = [%r, %r]\n"
-            "for n in ('jax', 'jaxlib', 'hpgq'):\n"
-            "    sys.modules[n] = None\n"
-            "from hpgq_torch.dist.launch import launch\n"
-            "from hpgq_torch.options import StatsOptions\n"
-            "from torch_rank_targets import fail_on_rank_one, wait_forever\n"
-            "FQ, OUT, PIDS = %r, %r, %r\n"
-            "launch(%s, (%s,), ['cpu', 'cpu'])\n"
-            % (REPO, TESTS, fq, str(out), str(pids), target, args))
-    env = dict(os.environ, TMPDIR=str(tmp))
-    t0 = time.perf_counter()
-    p = subprocess.Popen([sys.executable, "-c", code], env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                         text=True)
-    try:
-        if sig is not None:
-            while len(os.listdir(pids)) < 2:
-                assert p.poll() is None and time.perf_counter() - t0 < 50
-                time.sleep(0.1)
-            p.send_signal(sig)
-        _, err = p.communicate(timeout=60 - (time.perf_counter() - t0))
-    finally:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
-    assert p.returncode != 0, err[-2000:]
-    assert time.perf_counter() - t0 < 60
-    ranks = [int((pids / n).read_text()) for n in sorted(os.listdir(pids))]
-    if sig is None:
-        assert "rank 1 fails on purpose" in err
-        assert "RankFailed" in err
-    assert len(ranks) in (1, 2) and not any(_alive(r) for r in ranks)
-    assert os.listdir(tmp) == []
-    assert not [n for n in os.listdir(out) if n.endswith(".summary.txt")]
 
 
 def _rotating(ck, nprocs):
@@ -254,3 +184,34 @@ def test_hpgq_one_process_checkpoint_resumes_in_one_process(
                                                 full.num_failed)
     assert not os.path.exists(ck + ".a") and not os.path.exists(ck + ".b")
     assert_same_tree(str(out), str(tmp_path / "a"), reports=True)
+
+
+def test_ctrl_c_then_resume(tmp_path):
+    """A launched ``stats`` with ``--checkpoint-every 1`` gets Ctrl-C (SIGINT
+    to the group) once both ranks hold their first rotating checkpoint:
+    nothing is left running and no report is written, but the checkpoint
+    set stays.  A second launch resumes it, finishes, deletes the set,
+    and writes the report of an uninterrupted run byte for byte."""
+    from torch_rank_targets import run_jobs
+
+    ck = str(tmp_path / "ck")
+    opts = ("StatsOptions(in_filename=FQ, out_dirname=OUT, batch_size=300, "
+            "checkpoint_path=CK, checkpoint_every=1), PIDS")
+    code, err, secs, ranks, tmp = _stopped_launch(
+        tmp_path, "stats_then_wait", opts, signal.SIGINT, group=True)
+    _nothing_left(code, err, secs, ranks, tmp, tmp_path / "out")
+    assert sorted(os.path.basename(p) for p in glob.glob(ck + ".rank*")) \
+        == ["ck.rank0.a", "ck.rank1.a"]
+
+    fq = str(tmp_path / "in.fq")
+    resumed = StatsOptions(in_filename=fq, out_dirname=str(tmp_path / "out"),
+                           batch_size=300, checkpoint_path=ck,
+                           checkpoint_every=1)
+    got = launch.launch(run_jobs, ([("stats", resumed)],), ["cpu", "cpu"])
+    assert not glob.glob(ck + "*")
+    (tmp_path / "whole").mkdir()
+    want = prun.run_stats(StatsOptions(in_filename=fq,
+                                       out_dirname=str(tmp_path / "whole"),
+                                       batch_size=300), device="cpu")
+    assert got["stats"][0].equals(want)
+    assert_same_tree(str(tmp_path / "out"), str(tmp_path / "whole"))

@@ -1,0 +1,213 @@
+"""``tests/test_native.py``'s cases on the port's own copies: its native
+C++ packer (``hpgq_torch.io.native``) against its numpy fallback
+(``hpgq_torch.io.packer``), byte for byte, and the reader on either.  The
+``pack_block_fused`` cases stay out (the fused4 wire is not ported).  The
+qn8 decode is the port's ``kernels/wire_torch.wire_unqn8``, held against
+``hpgq``'s ``stats_jnp.wire_unqn8`` on the same buffer and against the
+packed arrays.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from gen import make_fastq
+
+from hpgq_torch.io import native
+from hpgq_torch.io.fastq import FastqReader
+from hpgq_torch.io.packer import pack_block
+
+pytestmark = pytest.mark.skipif(
+    not native.available(), reason="native packer not built (no g++?)"
+)
+
+
+def _np_pack(block, max_len=0, pad_reads_to=0):
+    """Force the numpy path regardless of native availability."""
+    import hpgq_torch.io.native as n
+
+    saved = n.available
+    n.available = lambda: False
+    try:
+        return pack_block(block, max_len=max_len, pad_reads_to=pad_reads_to)
+    finally:
+        n.available = saved
+
+
+def test_find_newlines_matches_numpy():
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, size=100_000, dtype=np.uint8)
+    buf = data.tobytes()
+    got = native.find_newlines(buf)
+    want = np.flatnonzero(data == 0x0A)
+    np.testing.assert_array_equal(got, want)
+    assert native.find_newlines(b"").shape == (0,)
+    assert list(native.find_newlines(b"\n\n")) == [0, 1]
+
+
+@pytest.mark.parametrize("varlen", [False, True])
+def test_pack_block_matches_numpy(tmp_path, varlen):
+    path = tmp_path / "r.fq"
+    kw = dict(min_len=40, max_len=150) if varlen else dict(min_len=90, max_len=90)
+    make_fastq(str(path), 3000, n_prob=0.01, lowercase_prob=0.1, seed=4, **kw)
+    with FastqReader(str(path), batch_size=1024) as rd:
+        for block in rd:
+            for ml, pr in ((0, 0), (256, 4096)):
+                a = pack_block(block, max_len=ml, pad_reads_to=pr)
+                b = _np_pack(block, max_len=ml, pad_reads_to=pr)
+                for x, y, name in zip(a, b, ("codes", "quals", "lens", "valid")):
+                    np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+@pytest.mark.parametrize("varlen", [False, True])
+def test_pack_block_bitwire_matches_numpy(tmp_path, varlen):
+    """Native single-pass bitpack wire == numpy pack + wire_bitpack_np
+    (byte-exact): 3-bit codes, 7-bit quals, len/valid tail, row padding."""
+    from hpgq_torch.io.packer import pack_block_bitwire, wire_bitpack_np
+
+    path = tmp_path / "r.fq"
+    kw = dict(min_len=41, max_len=151) if varlen else dict(min_len=90, max_len=90)
+    make_fastq(str(path), 3000, n_prob=0.01, lowercase_prob=0.1, seed=6, **kw)
+    with FastqReader(str(path), batch_size=1024) as rd:
+        for block in rd:
+            for L, pr in ((256, 0), (256, 4096), (128, 2048)):
+                got = pack_block_bitwire(block, L, pad_reads_to=pr)
+                want = wire_bitpack_np(*_np_pack(block, max_len=L, pad_reads_to=pr))
+                np.testing.assert_array_equal(got, want)
+
+
+def test_pack_bitwire2q_edge_quals(tmp_path):
+    """2q palette packer edge cases vs the numpy oracle: qual values >= 64
+    (the discovery bitmap's second word — the binned corpora used
+    elsewhere stay below 64 and never exercise it), exactly-4-distinct
+    palettes spanning the 63/64 boundary, single-value rows, zero-length
+    reads, and rows longer than the wire width (truncation)."""
+    from hpgq_torch.io.native import pack_bitwire2q
+    from hpgq_torch.io.packer import wire_bitpack2q_np
+
+    rows = [
+        # (seq, quals as phred values)
+        (b"ACGTN" * 8, [0, 63, 64, 93] * 10),       # spans both words
+        (b"ACGT" * 10, [64] * 40),                  # single value >= 64
+        (b"GGGG" * 25, [93] * 100),                 # max legal qual
+        (b"", []),                                  # zero-length read
+        (b"ACGT" * 50, [2, 12, 23, 37] * 50),       # longer than L=128
+        (b"TTTT", [0, 0, 0, 0]),                    # min qual only
+    ]
+    path = tmp_path / "edge.fq"
+    with open(path, "wb") as f:
+        for i, (seq, qv) in enumerate(rows):
+            q = bytes(33 + v for v in qv)
+            f.write(b"@e%d\n%s\n+\n%s\n" % (i, seq, q))
+    with FastqReader(str(path), batch_size=64) as rd:
+        block = next(iter(rd))
+    for L, pr in ((128, 0), (128, 64)):
+        got = pack_bitwire2q(block.arr, block.starts[:, 1],
+                             block.starts[:, 3], block.seq_lens, L,
+                             max(pr, block.num_reads))
+        want = wire_bitpack2q_np(
+            *_np_pack(block, max_len=L, pad_reads_to=max(pr, block.num_reads)))
+        assert got is not None and want is not None
+        np.testing.assert_array_equal(got, want)
+
+    # a 5-distinct row must misfit in both implementations
+    with open(path, "ab") as f:
+        q = bytes(33 + v for v in (0, 20, 40, 60, 80) * 8)
+        f.write(b"@e9\n%s\n+\n%s\n" % (b"ACGT" * 10, q))
+    with FastqReader(str(path), batch_size=64) as rd:
+        block = next(iter(rd))
+    got = pack_bitwire2q(block.arr, block.starts[:, 1], block.starts[:, 3],
+                         block.seq_lens, 128, block.num_reads)
+    want = wire_bitpack2q_np(*_np_pack(block, max_len=128))
+    assert got is None and want is None
+
+
+def test_reader_native_vs_numpy(tmp_path):
+    path = tmp_path / "big.fq"
+    make_fastq(str(path), 5000, min_len=60, max_len=200, seed=8)
+    with FastqReader(str(path), batch_size=999) as rd:
+        native_blocks = [
+            (b.buf, b.starts.copy(), b.ends.copy()) for b in rd
+        ]
+    os.environ["HPGQ_NO_NATIVE"] = "1"
+    try:
+        import hpgq_torch.io.native as n
+
+        saved = n.available
+        n.available = lambda: False
+        try:
+            with FastqReader(str(path), batch_size=999) as rd:
+                np_blocks = [(b.buf, b.starts.copy(), b.ends.copy()) for b in rd]
+        finally:
+            n.available = saved
+    finally:
+        del os.environ["HPGQ_NO_NATIVE"]
+    assert len(native_blocks) == len(np_blocks)
+    for (b1, s1, e1), (b2, s2, e2) in zip(native_blocks, np_blocks):
+        assert b1 == b2
+        np.testing.assert_array_equal(s1, s2)
+        np.testing.assert_array_equal(e1, e2)
+
+
+def test_find_newlines_mt_paths():
+    """The multi-threaded scan (>=2MB buffers) matches numpy, including the
+    capacity-retry path and pathological all-newline input."""
+    rng = np.random.default_rng(3)
+    big = rng.integers(0, 256, size=3 << 21, dtype=np.uint8)
+    got = native.find_newlines(big)
+    want = np.flatnonzero(big == 0x0A)
+    np.testing.assert_array_equal(got, want)
+
+    dense = np.full(1 << 22, 0x0A, dtype=np.uint8)  # every byte a newline
+    got = native.find_newlines(dense)
+    assert got.shape[0] == dense.shape[0]
+    np.testing.assert_array_equal(got, np.arange(dense.shape[0]))
+
+
+@pytest.mark.parametrize("varlen", [False, True])
+def test_pack_block_qnwire_matches_numpy(tmp_path, varlen):
+    """Native single-pass qn8 wire == numpy pack + wire_qn8_np (byte-exact):
+    qual|isN<<7 bytes, len/valid tail, row padding."""
+    from hpgq_torch.io.packer import pack_block_qnwire, wire_qn8_np
+
+    path = tmp_path / "r.fq"
+    kw = dict(min_len=41, max_len=151) if varlen else dict(min_len=90, max_len=90)
+    make_fastq(str(path), 3000, n_prob=0.03, lowercase_prob=0.1, seed=9, **kw)
+    with FastqReader(str(path), batch_size=1024) as rd:
+        for block in rd:
+            for L, pr in ((256, 0), (256, 4096), (128, 2048)):
+                got = pack_block_qnwire(block, L, pad_reads_to=pr)
+                want = wire_qn8_np(*_np_pack(block, max_len=L, pad_reads_to=pr))
+                np.testing.assert_array_equal(got, want)
+
+
+def test_wire_unqn8_roundtrip(tmp_path):
+    """qn8 wire decode recovers quals/lens/valid and an is-N codes tensor
+    that agrees with the packed codes' N positions."""
+    import torch
+
+    from hpgq.kernels.stats_jnp import wire_unqn8 as jnp_unqn8
+    from hpgq_torch.io.packer import pack_block, pack_block_qnwire
+    from hpgq_torch.kernels.wire_torch import wire_unqn8
+
+    path = tmp_path / "r.fq"
+    make_fastq(str(path), 700, min_len=30, max_len=140, n_prob=0.05, seed=10)
+    with FastqReader(str(path), batch_size=512) as rd:
+        for block in rd:
+            buf = pack_block_qnwire(block, 256, pad_reads_to=1024)
+            codes, quals, lens, valid = pack_block(block, max_len=256,
+                                                   pad_reads_to=1024)
+            dc, dq, dl, dv = (x.numpy() for x in
+                              wire_unqn8(torch.from_numpy(buf)))
+            for got, want in zip((dc, dq, dl, dv), jnp_unqn8(buf)):
+                np.testing.assert_array_equal(got, np.asarray(want))
+            np.testing.assert_array_equal(dl, np.where(valid, lens, 0))
+            np.testing.assert_array_equal(dv, valid)
+            # quals match inside each read's length
+            pos = np.arange(256)[None, :]
+            mask = (pos < dl[:, None])
+            np.testing.assert_array_equal(
+                np.where(mask, dq, 0), np.where(mask, quals & 0x7F, 0))
+            np.testing.assert_array_equal(
+                np.where(mask, dc, 0), np.where(mask, (codes == 4) * 4, 0))

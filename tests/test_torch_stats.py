@@ -167,7 +167,7 @@ def test_zero_length_and_empty_batch():
 def test_merge_into_matches_jnp(crit):
     """Several batches merged (with the Kahan step) into int64 state equal
     the jnp merge of the same partials."""
-    acc_t = stats_torch.zero_partials(128)
+    acc_t = stats_torch.zero_partials(128, device="cpu")
     acc_j = stats_jnp.zero_partials(128)
     for s in range(4):
         codes, quals, lens, valid = _rand_batch(300, 128, seed=40 + s)
@@ -199,7 +199,8 @@ def test_merge_into_field_mismatch(kmers_acc, kmers_p, drop, error):
     p.pop("_passed_mask")
     if drop:
         del p[drop]
-    acc = stats_torch.zero_partials(128, kmers_on=kmers_acc)
+    acc = stats_torch.zero_partials(128, kmers_on=kmers_acc,
+                                     device="cpu")
     if error is None:
         stats_torch.merge_into(acc, p)
         assert int(acc["num_reads"]) == int(valid.sum())
@@ -404,7 +405,7 @@ def test_stats_step_with_kmers_matches_jax(L):
                                        jit=False, engine="pallas_interpret")
     step_t = make_stats_step(L, PHRED33, CRIT, kmers_on=True)
     acc_j = stats_jnp.zero_partials(L, kmers_on=True)
-    acc_t = stats_torch.zero_partials(L, kmers_on=True)
+    acc_t = stats_torch.zero_partials(L, kmers_on=True, device="cpu")
     for s in range(2):
         b = _rand_batch(TB, L, seed=80 + s)
         acc_j = step_j(acc_j, *b)

@@ -167,7 +167,7 @@ def test_step2u_matches_jax(tmp_path, crit):
                                          engine="pallas_interpret")
     step_t = tstep.make_stats_step2u(128, 33, crit, 100)
     acc_j = stats_jnp.zero_partials(128)
-    acc_t = zero_partials(128)
+    acc_t = zero_partials(128, device="cpu")
     tstep.WIRE_BATCHES.clear()
     for block in blocks:
         buf, exc, pal, n_valid, Lu = try_pack_block_2u(block,
@@ -192,7 +192,7 @@ def test_step2u_routes_by_need(tmp_path, crit, kmers):
                                          engine="pallas_interpret")
     step_t = tstep.make_stats_step2u(128, 33, crit, 100, kmers_on=kmers)
     acc_j = stats_jnp.zero_partials(128, kmers_on=kmers)
-    acc_t = zero_partials(128, kmers_on=kmers)
+    acc_t = zero_partials(128, kmers_on=kmers, device="cpu")
     tstep.WIRE_BATCHES.clear()
     tstep.DECODED.clear()
     for block in blocks:
@@ -215,7 +215,7 @@ def test_step2u_past_k1_lcap_decodes(tmp_path):
     and give the same sums as the step at lcap 128."""
     blocks = _blocks(tmp_path, n=600, batch=300, min_len=100, max_len=100,
                      seed=17, qual_bins=(2, 12, 23, 37))
-    acc = {128: zero_partials(128), 4224: zero_partials(4224)}
+    acc = {L: zero_partials(L, device="cpu") for L in (128, 4224)}
     tstep.DECODED.clear()
     for block in blocks:
         buf, exc, pal, n_valid, _ = try_pack_block_2u(block, pad_reads_to=512)
@@ -269,7 +269,7 @@ def test_step_bitpack_matches_jax(tmp_path, tier):
                                        wire="bitpack", donate=False)
     step_t = tstep.make_stats_step(128, 33, CRIT, wire="bitpack")
     acc_j = stats_jnp.zero_partials(128)
-    acc_t = zero_partials(128)
+    acc_t = zero_partials(128, device="cpu")
     tstep.WIRE_BATCHES.clear()
     for block in blocks:
         out = pack_block_bitwire_tier(block, 128, TIERS[tier],
@@ -289,7 +289,7 @@ def test_step_plain_matches_jax(tmp_path):
                                        donate=False)
     step_t = tstep.make_stats_step(256, 33, CRIT)
     acc_j = stats_jnp.zero_partials(256)
-    acc_t = zero_partials(256)
+    acc_t = zero_partials(256, device="cpu")
     for block in blocks:
         packed = pack_block(block, max_len=256, pad_reads_to=512)
         acc_j = step_j(acc_j, *packed)

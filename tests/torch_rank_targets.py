@@ -7,6 +7,7 @@ only the port's modules.
 """
 
 import os
+import signal
 import sys
 import time
 
@@ -56,3 +57,27 @@ def wait_forever(pid_dir):
     if dist.get_rank() == 0:
         mesh.barrier(mesh.initialize_distributed())
     time.sleep(3600)
+
+
+def wait_through_sigterm(pid_dir):
+    """:func:`wait_forever`, with SIGTERM ignored: a rank that only
+    SIGKILL stops, after the launcher's grace period."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    wait_forever(pid_dir)
+
+
+def stats_then_wait(opts, pid_dir):
+    """``stats`` over this rank's range until its first rotating
+    checkpoint is on disk; then the rank notes its pid and waits, as
+    :func:`wait_forever` waits (both ranks save at the same lockstep
+    step)."""
+    real = run_dist._RotatingRankCheckpoint.maybe_save
+
+    def save_then_wait(self, *a, **k):
+        if real(self, *a, **k):
+            _note_pid(pid_dir)
+            time.sleep(3600)
+        return False
+
+    run_dist._RotatingRankCheckpoint.maybe_save = save_then_wait
+    return run_dist.run_stats_sharded(opts, device="cpu")
