@@ -1,0 +1,16 @@
+"""``reader_wait_share`` (pipeline layer): the share of the consumers' time
+spent waiting on the reader thread, which had not yet inflated and
+indexed the next block.
+
+The ``wait-reader`` stage's seconds over the ``read`` and ``compute``
+stages' seconds (``input_wait_share``'s base), summed over every pass of
+the window and every rank.  ``wait-reader`` lies inside ``read``, beside
+``wait-pack``; a run whose program has no such stage reads nothing."""
+
+
+def read(run):
+    w = run.stages.get("wait-reader")
+    base = run.stages.get("read", 0.0) + run.stages.get("compute", 0.0)
+    if w is None or base <= 0:
+        return None
+    return 100.0 * w / base

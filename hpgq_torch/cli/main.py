@@ -127,8 +127,9 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
                    help="Batches between checkpoints (0 = off)")
     p.add_argument("--profile-dir", default=None,
                    help="Write a torch.profiler Chrome trace of the run "
-                        "(stats, filter, edit, prepro; host operators and, "
-                        "on CUDA, the card's kernels) into this directory")
+                        "(stats, filter, edit, prepro; host operators and "
+                        "stage.<name> ranges of every thread and, on CUDA, "
+                        "the card's kernels) into this directory")
     p.add_argument("--sharded", action="store_true",
                    help="Data-parallel over every local card, one process "
                         "per card (CUDA_VISIBLE_DEVICES narrows them); "

@@ -86,24 +86,25 @@ def striped_blocks(reader, stripe: int, n_stripes: int):
             yield block
 
 
-def open_shard_reader(path: str, opts, pg, start_offset=None):
+def open_shard_reader(path: str, opts, pg, timers, start_offset=None):
     """``(reader, block iterator)`` of this rank's part of ``path``: its
     record-aligned byte range (plain or BGZF), its stripe (plain gzip), or
     the whole file at world size 1.  ``start_offset`` resumes a range or a
-    whole file from a checkpointed logical offset."""
+    whole file from a checkpointed logical offset; the reader times its
+    inflate and index in ``timers``."""
     batch = _reader_batch(opts, pg.device)
     if pg.world_size > 1 and range_splittable(path):
         start, end = split_byte_ranges(path, pg.world_size)[pg.rank]
         if start_offset is not None:
             start = max(start, start_offset)
         reader = FastqReader(path, batch_size=batch, start_offset=start,
-                             end_offset=end)
+                             end_offset=end, timers=timers)
         return reader, iter(reader)
     if pg.world_size > 1:
-        reader = FastqReader(path, batch_size=batch)
+        reader = FastqReader(path, batch_size=batch, timers=timers)
         return reader, striped_blocks(reader, pg.rank, pg.world_size)
     reader = FastqReader(path, batch_size=batch,
-                         start_offset=start_offset or 0)
+                         start_offset=start_offset or 0, timers=timers)
     return reader, iter(reader)
 
 
@@ -270,10 +271,12 @@ def run_stats_sharded(opts: StatsOptions,
 
     def fold():
         nonlocal carry
-        carry = _merged(carry, sharded_counters(pg, sess.take()), crit)
+        with timers.stage("fold"):
+            local = sess.take()
+        carry = _merged(carry, sharded_counters(pg, local), crit)
 
     last = offset or 0
-    reader, blocks = open_shard_reader(path, opts, pg, offset)
+    reader, blocks = open_shard_reader(path, opts, pg, timers, offset)
     with reader:
         items = _iter_packed(_coalesced(opts, blocks, dev), sess, br, timers,
                              depth=opts.batch_list_size)
@@ -288,7 +291,9 @@ def run_stats_sharded(opts: StatsOptions,
                     ck.maybe_save(lambda: carry, last, fold=fold)
 
     with timers.stage("finish-merge"):
-        counters = _merged(carry, sharded_counters(pg, sess.finish()), crit)
+        with timers.stage("fold"):
+            local = sess.finish()
+        counters = _merged(carry, sharded_counters(pg, local), crit)
     if ck is not None:
         ck.complete()
     if report and pg.rank == 0:
@@ -336,17 +341,19 @@ def _run_stats_sharded_paired(opts, timers, pg, report: bool):
 
     def fold():
         nonlocal carry1, carry2
-        carry1, carry2 = merge_both(*sess.take())
+        with timers.stage("fold"):
+            local = sess.take()
+        carry1, carry2 = merge_both(*local)
 
     last1, last2 = s1, s2
     batch = _reader_batch(opts, dev)
     with FastqReader(paths[0], batch_size=batch, start_offset=s1,
-                     end_offset=e1) as r1, \
+                     end_offset=e1, timers=timers) as r1, \
             FastqReader(paths[1], batch_size=batch, start_offset=s2,
-                        end_offset=e2) as r2:
+                        end_offset=e2, timers=timers) as r2:
         items = _iter_packed_paired(_iter_blocks_paired(
             _coalesced(opts, r1, dev), _coalesced(opts, r2, dev), timers),
-            sess)
+            sess, timers)
         for item in iter_lockstep(pg, items, ck is not None, timers):
             if item is not None:
                 b1, b2, in1, in2 = item
@@ -361,7 +368,9 @@ def _run_stats_sharded_paired(opts, timers, pg, report: bool):
                                   fold=fold)
 
     with timers.stage("finish-merge"):
-        c1, c2 = merge_both(*sess.finish())
+        with timers.stage("fold"):
+            local = sess.finish()
+        c1, c2 = merge_both(*local)
     if ck is not None:
         ck.complete()
     if report and pg.rank == 0:
@@ -423,7 +432,7 @@ def run_cgr_sharded(opts, timers: Optional[StageTimers] = None,
         if idx < start_input:
             continue
         start = offset if idx == start_input else None
-        reader, blocks = open_shard_reader(path, opts, pg, start)
+        reader, blocks = open_shard_reader(path, opts, pg, timers, start)
         last = start or 0
         with reader:
             if ck is None:

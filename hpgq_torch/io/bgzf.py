@@ -1,5 +1,6 @@
 """The port's own copy of ``hpgq/io/bgzf.py`` (the port imports nothing of
-``hpgq``); kept equal to it.
+``hpgq``); its reader also times each member's inflate in a pass's stage
+timers (the ``inflate`` stage, on the thread that inflates it).
 
 BGZF (blocked gzip) support: random access into compressed FASTQ.
 
@@ -27,6 +28,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..utils.timers import NO_TIMERS
 
 _SUB = struct.Struct("<BBH")     # si1, si2, slen
 
@@ -115,10 +118,13 @@ class BgzfFile:
     members are decompressed on a thread pool while the caller consumes the
     current one (zlib releases the GIL), lifting sequential decode from
     single-thread zlib speed to ~N× — the BGZF framing is what makes the
-    members independently decodable."""
+    members independently decodable.  Each member's inflate is
+    ``timers``' ``inflate`` stage."""
 
-    def __init__(self, path: str, index=None, readahead: int = 8):
+    def __init__(self, path: str, index=None, readahead: int = 8,
+                 timers=NO_TIMERS):
         self.path = path
+        self._timers = timers
         self._fh = open(path, "rb")
         self.c_offsets, self.l_offsets = index or cached_index(path)
         self.logical_size = int(self.l_offsets[-1])
@@ -149,15 +155,17 @@ class BgzfFile:
             )
         return data
 
+    def _inflate(self, raw: bytes) -> bytes:
+        with self._timers.stage("inflate"):
+            return zlib.decompress(raw, 31)
+
     def _load_block(self, i: int):
         if i == self._blk:
             return
         if self._ra > 0:
             self._load_block_ra(i)
             return
-        self._blk_data = self._check_block(
-            i, zlib.decompress(self._raw_member(i), wbits=31)
-        )
+        self._blk_data = self._check_block(i, self._inflate(self._raw_member(i)))
         self._blk = i
 
     def _load_block_ra(self, i: int):
@@ -174,9 +182,7 @@ class BgzfFile:
         for j in range(i, min(i + self._ra + 1, n_blocks)):
             if j not in self._futures:
                 raw = self._raw_member(j)
-                self._futures[j] = self._pool.submit(
-                    zlib.decompress, raw, 31
-                )
+                self._futures[j] = self._pool.submit(self._inflate, raw)
         self._blk_data = self._check_block(i, self._futures[i].result())
         self._blk = i
         # evict stale futures (random-access patterns won't grow the dict)

@@ -166,7 +166,7 @@ def run_cgr(opts: CgrOptions, timers: Optional[StageTimers] = None,
             continue
         offset = start_offset if idx == start_input else 0
         with FastqReader(path, batch_size=_reader_batch(opts, dev),
-                         start_offset=offset) as rd:
+                         start_offset=offset, timers=timers) as rd:
             if not ck_path:
                 sess.feed_all(rd, timers)
                 continue

@@ -1,5 +1,6 @@
-"""The port's own copy of ``hpgq/pipeline/prefetch.py`` (the port imports nothing of
-``hpgq``); kept equal to it.
+"""The port's own copy of ``hpgq/pipeline/prefetch.py`` (the port imports
+nothing of ``hpgq``), with one addition: on a transform pool the
+consumer's wait is timed by what it waits on (``timers``).
 
 Background producer: overlap file read/index/pack with device compute.
 
@@ -19,11 +20,13 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator
 
+from ..utils.timers import NO_TIMERS
+
 _SENTINEL = object()
 
 
 def prefetched(it: Iterable, depth: int = 3, transform: Callable = None,
-               workers: int = 1) -> Iterator:
+               workers: int = 1, timers=None) -> Iterator:
     """Iterate ``it`` (optionally mapped through ``transform``) in a
     background thread, ``depth`` items ahead.  Exceptions re-raise at the
     consumption point; the producer stops if the consumer abandons early.
@@ -35,14 +38,20 @@ def prefetched(it: Iterable, depth: int = 3, transform: Callable = None,
     (numpy, the native packer, and jax transfers all release the GIL), so
     the pipeline's critical path drops to max(stage) instead of sum(stages)
     — the TPU reshaping of the reference's N worker threads
-    (``workflow_run_with(num_threads)``, src/stats_fastq.c:465)."""
+    (``workflow_run_with(num_threads)``, src/stats_fastq.c:465).
+
+    With a pool, ``timers`` (stage timers) get the consumer's wait for the
+    next item, split in two: ``wait-reader`` while the reader thread has
+    not yet handed it over, ``wait-pack`` while its transform runs.  One
+    producer does both in the serial case, whose wait is not split."""
     if workers > 1 and transform is not None:
-        return _prefetched_pool(it, depth, transform, workers)
+        return _prefetched_pool(it, depth, transform, workers,
+                                timers or NO_TIMERS)
     return _prefetched_serial(it, depth, transform)
 
 
 def _prefetched_pool(it: Iterable, depth: int, transform: Callable,
-                     workers: int) -> Iterator:
+                     workers: int, timers) -> Iterator:
     # bounded queue of futures: reader blocks when depth transforms are in
     # flight; consumer resolves futures in submission (= input) order
     q: "queue.Queue" = queue.Queue(maxsize=max(depth, workers))
@@ -81,12 +90,15 @@ def _prefetched_pool(it: Iterable, depth: int, transform: Callable,
     t.start()
     try:
         while True:
-            item = q.get()
+            with timers.stage("wait-reader"):
+                item = q.get()
             if item is _SENTINEL:
                 return
             if isinstance(item, BaseException):
                 raise item
-            yield item.result()
+            with timers.stage("wait-pack"):
+                done = item.result()
+            yield done
     finally:
         stop.set()
         pool.shutdown(wait=False, cancel_futures=True)

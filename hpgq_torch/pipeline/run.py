@@ -143,21 +143,26 @@ def _tensors(x):
             yield from _tensors(a)
 
 
-def _device_batches(items, pack, dev, depth: int = 0, workers: int = 0):
+def _device_batches(items, pack, dev, timers, depth: int = 0,
+                    workers: int = 0):
     """(item, device args) with ``pack(item)`` (host numpy arrays) and the
     host-to-device copy of the next items running in a thread pool while
     the current step runs.  On CUDA the copy is a pinned ``non_blocking``
     one on a side stream: the consumer's current stream waits on its
     event, and the pinned buffers stay referenced until the consumer asks
-    for the next item, by which time its step is enqueued."""
+    for the next item, by which time its step is enqueued.  ``timers`` get
+    the ``pack`` and ``h2d`` stages on the thread that runs them and the
+    consumer's wait split by what it waits on (:func:`prefetched`)."""
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def transform(item):
-        packed = pack(item)
+        with timers.stage("pack"):
+            packed = pack(item)
         if copy_stream is None:
-            return item, to_device(packed, dev), None, None
+            with timers.stage("h2d"):
+                return item, to_device(packed, dev), None, None
         keep = []
-        with torch.cuda.stream(copy_stream):
+        with timers.stage("h2d"), torch.cuda.stream(copy_stream):
             arrs = to_device(packed, dev, non_blocking=True, keep=keep)
             done = torch.cuda.Event()
             done.record(copy_stream)
@@ -166,7 +171,7 @@ def _device_batches(items, pack, dev, depth: int = 0, workers: int = 0):
     workers = workers or _pack_workers()
     for item, arrs, done, keep in prefetched(
             iter(items), depth=depth or (workers + 2), transform=transform,
-            workers=workers):
+            workers=workers, timers=timers):
         if done is not None:
             cur = torch.cuda.current_stream(dev)
             cur.wait_event(done)
@@ -194,7 +199,7 @@ def _iter_packed(reader, sess, batch_reads: int, timers, depth: int = 0,
                  workers: int = 0):
     """(block, device args for ``sess.feed_packed``)."""
     it = _device_batches(reader, lambda b: sess.pack(b, batch_reads),
-                         sess.device, depth, workers)
+                         sess.device, timers, depth, workers)
     while True:
         with timers.stage("read"):
             item = next(it, None)
@@ -237,11 +242,11 @@ def _iter_blocks_paired(r1, r2, timers):
         yield s1, s2
 
 
-def _iter_packed_paired(pairs, sess):
+def _iter_packed_paired(pairs, sess, timers):
     """(b1, b2, in1, in2): both mates packed and copied in the pool (the
     reads are counted by :func:`_iter_blocks_paired`)."""
     for (b1, b2), (in1, in2) in _device_batches(
-            pairs, lambda p: sess.pack_pair(*p), sess.device):
+            pairs, lambda p: sess.pack_pair(*p), sess.device, timers):
         yield b1, b2, in1, in2
 
 
@@ -338,12 +343,13 @@ def _run_stats_parallel(opts, timers, crit, br, nshards: int, device):
                                 kmers_on=opts.kmers_on)
             with FastqReader(opts.in_filename,
                              batch_size=_reader_batch(opts, device),
-                             start_offset=rng[0], end_offset=rng[1]) as rd:
+                             start_offset=rng[0], end_offset=rng[1],
+                             timers=t) as rd:
                 for _, arrs in _iter_packed(_coalesced(opts, rd, device),
                                             sess, br, t, workers=1):
                     with t.stage("compute"):
                         sess.feed_packed(*arrs)
-            with t.stage("compute"):
+            with t.stage("compute"), t.stage("fold"):
                 return sess.finish(), t
 
     results, err = _in_threads(
@@ -397,12 +403,16 @@ class _Profiler:
     """A ``torch.profiler`` trace around a command's streaming loop
     (``--profile-dir``; the counterpart of ``hpgq/pipeline/run.py:
     320-337``): the host's operators of every thread of the run (the shard
-    readers and pools too, where this torch can trace other threads) and,
-    on CUDA, the card's kernels and copies.  On exit it writes one Chrome
-    trace, ``<dir>/hpgq_torch.<pid>.<random>.pt.trace.json``, named so
-    that runs writing into one directory at once cannot clash.  Shapes,
-    stacks and memory are not recorded: one pass over a million reads
-    makes tens of thousands of events already."""
+    readers and pools too, where this torch can trace other threads), the
+    program's ``stage.<name>`` ranges on the threads that enter them
+    (inflate, index, pack, h2d, the consumer's read with its wait-reader
+    and wait-pack, compute with its fold; :mod:`hpgq_torch.utils.timers`)
+    and, on CUDA, the card's kernels and copies, all on one clock.  On
+    exit it writes one Chrome trace,
+    ``<dir>/hpgq_torch.<pid>.<random>.pt.trace.json``, named so that runs
+    writing into one directory at once cannot clash.  Shapes, stacks and
+    memory are not recorded: one pass over a million reads makes tens of
+    thousands of events already."""
 
     def __init__(self, profile_dir, device):
         self.dir = profile_dir
@@ -496,8 +506,8 @@ def _stream_stats(opts, timers, dev):
     nb = 0
     rng = getattr(opts, "input_range", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
-                     start_offset=max(start, rng[0]),
-                     end_offset=rng[1]) as rd:
+                     start_offset=max(start, rng[0]), end_offset=rng[1],
+                     timers=timers) as rd:
         for block, arrs in _iter_packed(
                 _coalesced(opts, rd, dev), sess, br, timers,
                 depth=getattr(opts, "batch_list_size", 0)):
@@ -506,10 +516,11 @@ def _stream_stats(opts, timers, dev):
             nb += 1
             if ck_path and nb % ck_every == 0:
                 with timers.stage("checkpoint"):
-                    sess.acc.flush()
+                    with timers.stage("fold"):
+                        sess.acc.flush()
                     save_counters_checkpoint(ck_path, sess.acc.counters,
                                              block.end_offset, ck_key)
-    with timers.stage("compute"):
+    with timers.stage("compute"), timers.stage("fold"):
         counters = sess.finish()
     if ck_path and os.path.exists(ck_path):
         os.unlink(ck_path)  # run completed; a stale resume would re-read
@@ -541,27 +552,28 @@ def _run_stats_paired(opts, timers, crit, br, dev):
     rng1 = getattr(opts, "input_range", None) or (0, None)
     rng2 = getattr(opts, "input_range2", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
-                     start_offset=max(start1, rng1[0]),
-                     end_offset=rng1[1]) as r1, \
+                     start_offset=max(start1, rng1[0]), end_offset=rng1[1],
+                     timers=timers) as r1, \
             FastqReader(opts.in_filename2,
                         batch_size=_reader_batch(opts, dev),
                         start_offset=max(start2, rng2[0]),
-                        end_offset=rng2[1]) as r2:
+                        end_offset=rng2[1], timers=timers) as r2:
         for b1, b2, in1, in2 in _iter_packed_paired(
                 _iter_blocks_paired(_coalesced(opts, r1, dev),
                                     _coalesced(opts, r2, dev), timers),
-                sess):
+                sess, timers):
             with timers.stage("compute"):
                 sess.feed_pair_packed(in1, in2)
             nb += 1
             if ck_path and nb % ck_every == 0:
                 with timers.stage("checkpoint"):
-                    sess.flush()
+                    with timers.stage("fold"):
+                        sess.flush()
                     save_counters_checkpoint(
                         ck_path, sess.counters1, b1.end_offset, ck_key,
                         extra={"offset2": b2.end_offset},
                         counters2=sess.counters2)
-    with timers.stage("compute"):
+    with timers.stage("compute"), timers.stage("fold"):
         c1, c2 = sess.finish()
     if ck_path and os.path.exists(ck_path):
         os.unlink(ck_path)
@@ -700,8 +712,8 @@ def _filter(opts, timers, dev):
     start, sizes = ck.resume()
     rng = getattr(opts, "input_range", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
-                     start_offset=max(start, rng[0]),
-                     end_offset=rng[1]) as rd, \
+                     start_offset=max(start, rng[0]), end_offset=rng[1],
+                     timers=timers) as rd, \
             FastqWriter(passed_path, append_at=sizes.get("passed")) as pw, \
             FastqWriter(failed_path, append_at=sizes.get("failed")) as fw, \
             AsyncSpanPump() as pump:
@@ -738,12 +750,12 @@ def _run_filter_paired(opts, timers, crit, phred, br, dev, out):
     rng1 = getattr(opts, "input_range", None) or (0, None)
     rng2 = getattr(opts, "input_range2", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
-                     start_offset=max(start1, rng1[0]),
-                     end_offset=rng1[1]) as r1, \
+                     start_offset=max(start1, rng1[0]), end_offset=rng1[1],
+                     timers=timers) as r1, \
             FastqReader(opts.in_filename2,
                         batch_size=_reader_batch(opts, dev),
                         start_offset=max(aux.get("offset2", 0), rng2[0]),
-                        end_offset=rng2[1]) as r2, \
+                        end_offset=rng2[1], timers=timers) as r2, \
             FastqWriter(paths["passed_1"],
                         append_at=sizes.get("passed_1")) as p1, \
             FastqWriter(paths["passed_2"],
@@ -929,8 +941,8 @@ def _edit(opts, timers, dev):
     start, sizes = ck.resume()
     rng = getattr(opts, "input_range", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
-                     start_offset=max(start, rng[0]),
-                     end_offset=rng[1]) as rd, \
+                     start_offset=max(start, rng[0]), end_offset=rng[1],
+                     timers=timers) as rd, \
             contextlib.ExitStack() as stack:
         writers = {k: stack.enter_context(FastqWriter(
             p, append_at=sizes.get(k))) for k, p in paths.items()}
@@ -970,12 +982,12 @@ def _run_edit_paired(opts, timers, br, dev, out):
     rng1 = getattr(opts, "input_range", None) or (0, None)
     rng2 = getattr(opts, "input_range2", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
-                     start_offset=max(start1, rng1[0]),
-                     end_offset=rng1[1]) as r1, \
+                     start_offset=max(start1, rng1[0]), end_offset=rng1[1],
+                     timers=timers) as r1, \
             FastqReader(opts.in_filename2,
                         batch_size=_reader_batch(opts, dev),
                         start_offset=max(aux.get("offset2", 0), rng2[0]),
-                        end_offset=rng2[1]) as r2, \
+                        end_offset=rng2[1], timers=timers) as r2, \
             contextlib.ExitStack() as stack:
         w = {k: stack.enter_context(FastqWriter(p, append_at=sizes.get(k)))
              for k, p in paths.items()}

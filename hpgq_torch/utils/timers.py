@@ -1,19 +1,53 @@
-"""The port's own copy of ``hpgq/utils/timers.py`` (the port imports nothing of
-``hpgq``), with two additions: each stage's first entry is stamped
-(``first``: a launched rank's first batch ends its start-up split), and
-the report also prints the stages beyond the reference's list (a sharded
-run's ``vote``, ``finish-merge`` and ``launch-*`` stages).
+"""The port's stage timers: a copy of ``hpgq/utils/timers.py`` (the port
+imports nothing of ``hpgq``) grown into the port's one tracing system.
 
 Per-stage wall-clock timers (the reference's --t instrumentation,
-``old/main_hpg_fastq_old.c:49-80,741-763``) adapted to the TPU pipeline's
-stages: read, pack, h2d (device transfer+dispatch), compute (device sync),
-write, reporting."""
+``old/main_hpg_fastq_old.c:49-80,741-763``), entered on the thread that
+does each piece of work:
+
+* ``inflate`` (the ``hpgq-gunzip`` thread, or a BGZF member on the
+  ``bgzf`` pool), ``index`` (the newline index, line table and record
+  check of a chunk, on the reader thread: ``hpgq-reader`` or
+  ``hpgq-producer``), ``pack`` and ``h2d`` (a block packed and copied to
+  the device, on an ``hpgq-pack`` thread or a shard's producer);
+* ``read``, the consumer's wait for its next block, which on a pack pool
+  splits into ``wait-reader`` (the reader had not handed the block over)
+  and ``wait-pack`` (its pack and copy were not done);
+* ``compute`` (the consumer feeding the device step) with ``fold`` (the
+  device's partials folded into the host counters) inside it, ``write``,
+  ``checkpoint`` and ``reporting``; a sharded run's ``vote`` and
+  ``finish-merge``, and a launched rank's ``launch-*`` start-up split.
+
+Each stage's first entry is stamped (``first``: a launched rank's first
+batch ends its start-up split).  While a torch profiler runs, each stage
+is also a ``stage.<name>`` range of its trace, on the thread that entered
+it and on the clock of the device's kernels and copies; with no profiler
+a stage costs two clock reads, a lock and the profiler flag's test."""
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+# the stages of --t's report in pipeline order, then any other in the
+# order first entered
+ORDER = ("inflate", "index", "pack", "h2d", "read", "wait-reader",
+         "wait-pack", "compute", "fold", "write", "checkpoint", "reporting")
+
+
+def _profiling() -> bool:
+    """True while a torch profiler runs in this process, on any thread
+    (torch's process-wide flag; with torch not loaded none can run)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _range(name: str):
+    import torch.profiler
+
+    return torch.profiler.record_function("stage." + name)
 
 
 class StageTimers:
@@ -32,7 +66,11 @@ class StageTimers:
             self.first.setdefault(name, time.time())
         t = time.perf_counter()
         try:
-            yield
+            if _profiling():
+                with _range(name):
+                    yield
+            else:
+                yield
         finally:
             dt = time.perf_counter() - t
             with self._lock:
@@ -72,9 +110,7 @@ class StageTimers:
             )
         print("total time            (s): \t%10.5f" % total, file=out)
         print("", file=out)
-        named = ("read", "pack", "h2d", "compute", "write", "checkpoint",
-                 "reporting")
-        for name in named + tuple(k for k in self.totals if k not in named):
+        for name in ORDER + tuple(k for k in self.totals if k not in ORDER):
             if name in self.totals:
                 t = self.totals[name]
                 print(
@@ -88,3 +124,14 @@ class StageTimers:
                 "throughput            : \t%10.0f reads/s" % (self.total_reads / total),
                 file=out,
             )
+
+
+class _NoTimers:
+    """Timers that time nothing: the default of the readers, which run
+    without a pass's timers in the tools and tests."""
+
+    def stage(self, name: str):
+        return nullcontext()
+
+
+NO_TIMERS = _NoTimers()

@@ -386,12 +386,13 @@ def test_cgr_resume(tmp_path, monkeypatch, paired, writer, resumer):
                            device="cpu")
     ck = str(tmp_path / "ck.npz")
     mod = cgr_run if writer == "port" else hcgr_run
-    crash = _CrashAfter(3)
+    reader = mod.FastqReader
+    crash = _CrashAfter(3, reader)
     if paired:  # mate 1 whole, then mate 2 dies after 3 blocks
         real = crash.__call__
         crash = (lambda path, *a, **k: real(path, *a, **k)
-                 if path == inputs[1] else _CrashAfter(10 ** 9)(path, *a,
-                                                                **k))
+                 if path == inputs[1] else _CrashAfter(10 ** 9, reader)(
+                     path, *a, **k))
     monkeypatch.setattr(mod, "FastqReader", crash)
     cls = {"port": CgrOptions, "hpgq": HCgrOptions}
     with pytest.raises(_Killed):

@@ -375,7 +375,7 @@ def test_edit_resume(tmp_path, monkeypatch, paired, writer, resumer):
                          device="cpu")
     ck = str(tmp_path / "ck.npz")
     mod = prun if writer == "port" else hrun
-    monkeypatch.setattr(mod, "FastqReader", _CrashAfter(5))
+    monkeypatch.setattr(mod, "FastqReader", _CrashAfter(5, mod.FastqReader))
     with pytest.raises(_Killed):
         _run(writer, _edit_opts(cls[writer], inputs, got_dir, batch=100,
                                 ck=ck))

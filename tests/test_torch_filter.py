@@ -140,10 +140,10 @@ def test_filter_resume(tmp_path, monkeypatch, paired, resumer):
         os.makedirs(d)
     want = prun.run_filter(_filter_opts(inputs, want_dir), device="cpu")
     ck = str(tmp_path / "ck.npz")
-    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(5))
+    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(5, prun.FastqReader))
     with pytest.raises(_Killed):
         prun.run_filter(_filter_opts(inputs, got_dir, ck), device="cpu")
-    monkeypatch.setattr(prun, "FastqReader", FastqReader)
+    monkeypatch.undo()
     assert os.path.exists(ck)
     opts = _filter_opts(inputs, got_dir, ck)
     got = (prun.run_filter(opts, device="cpu") if resumer == "port"

@@ -221,13 +221,15 @@ class _Killed(Exception):
 
 
 class _CrashAfter:
-    """FastqReader stand-in that dies after ``n`` blocks (a killed run)."""
+    """Stand-in for ``reader`` (the FastqReader of the module it replaces
+    one in) that dies after ``n`` blocks (a killed run)."""
 
-    def __init__(self, n):
+    def __init__(self, n, reader=FastqReader):
         self.n = n
+        self.reader = reader
 
     def __call__(self, *a, **k):
-        reader = FastqReader(*a, **k)
+        reader = self.reader(*a, **k)
         n = self.n
 
         class Wrapped:
@@ -268,14 +270,14 @@ def test_checkpoint_resume(tmp_path, monkeypatch):
     path = _corpus(tmp_path, "varlong")
     ck = str(tmp_path / "ck.npz")
     want = _api(path, str(tmp_path), batch_size=200)
-    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(5))
+    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(5, prun.FastqReader))
     with pytest.raises(_Killed):
         _ck_run(path, str(tmp_path), ck)
     with np.load(ck) as z:
         key = json.loads(bytes(z["__meta__"].tobytes()))["config_key"]
     part, offset, _ = load_counters_checkpoint(ck, key)
     assert part.num_passed + part.num_failed == 4 * 200 and offset > 0
-    monkeypatch.setattr(prun, "FastqReader", FastqReader)
+    monkeypatch.undo()
     got = _ck_run(path, str(tmp_path), ck)
     assert got.equals(want)
     assert (got.num_passed, got.num_failed) == (want.num_passed,
@@ -807,10 +809,10 @@ def test_paired_checkpoint_resume(tmp_path, monkeypatch):
     ck = str(tmp_path / "ck.npz")
     want = _paired_api(p1, p2, batch_size=200)
     opts = _paired_ck_opts(p1, p2, ck)
-    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(4))
+    monkeypatch.setattr(prun, "FastqReader", _CrashAfter(4, prun.FastqReader))
     with pytest.raises(_Killed):
         prun.run_stats(opts, report=False, device="cpu")
-    monkeypatch.setattr(prun, "FastqReader", FastqReader)
+    monkeypatch.undo()
     key = _stats_config_key(opts, opts.criteria) + "|paired:%s" \
         % os.path.abspath(p2)
     part, offset, extra = load_counters_checkpoint(ck, key)
