@@ -29,6 +29,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..utils.timers import NO_TIMERS
+from .native.inflate import GzipReader, open_gzip
 
 _CHUNK = 16 * 1024 * 1024
 
@@ -46,12 +47,14 @@ class ReadaheadFile:
     it need not run on the pipeline's critical path: a daemon thread
     inflates ahead into a bounded queue (``depth`` x ``chunk_bytes`` of
     decompressed readahead) while the consumer indexes/packs the previous
-    chunks — zlib releases the GIL, so decode genuinely overlaps the numpy
-    and native-packer work.  This is the plain-gzip analog of the BGZF
-    reader's parallel block readahead (``hpgq_torch.io.bgzf``) and replaces the
-    reference's in-thread ``gzFile`` reads (gzip-capable ``fastq_fopen``,
-    src/stats_fastq.c:425).  Each piece's inflate is ``timers``' ``inflate``
-    stage; the wait for room in the queue is not."""
+    chunks — the native decoder and zlib both release the GIL, so decode
+    genuinely overlaps the numpy and native-packer work.  This is the
+    plain-gzip analog of the BGZF reader's parallel block readahead
+    (``hpgq_torch.io.bgzf``) and replaces the reference's in-thread
+    ``gzFile`` reads (gzip-capable ``fastq_fopen``, src/stats_fastq.c:425).
+    Each piece's inflate is ``timers``' ``inflate`` stage; the wait for room
+    in the queue is not.  Each piece's bytes are counted under the file's
+    ``COUNTER`` (``inflate-native-bytes``), or ``inflate-zlib-bytes``."""
 
     def __init__(self, fh, chunk_bytes: int = _CHUNK, depth: int = 4,
                  timers=NO_TIMERS):
@@ -63,6 +66,7 @@ class ReadaheadFile:
         # (measured: gz pass 1 188.7 s, pass 2 warm 1.6 s)
         self._fh = fh
         self._timers = timers
+        self._counter = getattr(fh, "COUNTER", "inflate-zlib-bytes")
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._cur = memoryview(b"")
         self._stop = threading.Event()
@@ -87,6 +91,7 @@ class ReadaheadFile:
             while not self._stop.is_set():
                 with self._timers.stage("inflate"):
                     data = self._fh.read(chunk_bytes)
+                self._timers.count(self._counter, len(data))
                 if not put(data):
                     return
                 if not data:
@@ -142,7 +147,10 @@ def open_maybe_gzip(path: str, mode: str = "rb", timers=NO_TIMERS):
     BGZF files (bgzip framing) get the seekable block reader — logical
     ``seek`` is cheap, enabling byte-range sharding and resume on
     compressed inputs (``hpgq_torch.io.bgzf``), which times each member's
-    inflate in ``timers``."""
+    inflate in ``timers``.  Other gzip input is read by the native decoder
+    (:class:`~hpgq_torch.io.native.inflate.GzipReader`), or by
+    :mod:`gzip` where the library cannot be built or ``HPGQ_NO_NATIVE`` is
+    set; gzip output is :mod:`gzip`'s."""
     if "r" in mode:
         with open(path, "rb") as probe:
             magic = probe.read(2)
@@ -151,7 +159,7 @@ def open_maybe_gzip(path: str, mode: str = "rb", timers=NO_TIMERS):
 
             if is_bgzf(path):
                 return BgzfFile(path, timers=timers)
-            return gzip.open(path, mode)
+            return open_gzip(path) or gzip.open(path, mode)
         return open(path, mode)
     if path.endswith(".gz"):
         return gzip.open(path, mode)
@@ -506,7 +514,7 @@ class FastqReader:
         self._fh = open_maybe_gzip(path, "rb", timers)
         if start_offset:
             self._fh.seek(start_offset)
-        if isinstance(self._fh, gzip.GzipFile):
+        if isinstance(self._fh, (GzipReader, gzip.GzipFile)):
             # plain (non-BGZF) gzip: pipeline the serial inflate off the
             # critical path (seek done above — the wrapper is read-only)
             self._fh = ReadaheadFile(self._fh, timers=timers)

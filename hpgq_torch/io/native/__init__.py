@@ -35,14 +35,15 @@ _lib = None
 _tried = False
 
 
-def _build() -> str:
-    """Compile packer.cpp -> _packer.so (atomic rename, race-safe)."""
+def _build(src: str = _SRC, so: str = _SO) -> str:
+    """Compile ``src`` (packer.cpp) -> ``so`` (_packer.so) (atomic rename,
+    race-safe); ``inflate.cpp`` builds with the same flags."""
     os.makedirs(_BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
     os.close(fd)
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
-        "-march=native", _SRC, "-o", tmp,
+        "-march=native", src, "-o", tmp,
     ]
     try:
         try:
@@ -53,11 +54,11 @@ def _build() -> str:
                 [a for a in cmd if a != "-march=native"],
                 check=True, capture_output=True, timeout=120,
             )
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return _SO
+    return so
 
 
 def get_lib():

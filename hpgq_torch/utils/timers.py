@@ -22,7 +22,13 @@ Each stage's first entry is stamped (``first``: a launched rank's first
 batch ends its start-up split).  While a torch profiler runs, each stage
 is also a ``stage.<name>`` range of its trace, on the thread that entered
 it and on the clock of the device's kernels and copies; with no profiler
-a stage costs two clock reads, a lock and the profiler flag's test."""
+a stage costs two clock reads, a lock and the profiler flag's test.
+
+Besides the stages, counts: integers summed under the same lock
+(``count``), such as the bytes each gzip piece inflated to, under the
+decoder that inflated it (``inflate-native-bytes``, or
+``inflate-zlib-bytes`` where the native library is not built); ``--t``
+prints them after the stages."""
 
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ def _range(name: str):
 class StageTimers:
     def __init__(self):
         self.totals = {}
+        self.counts = {}  # name -> an integer summed over the pass
         self.num_batches = 0
         self.total_reads = 0
         self.total_bytes = 0
@@ -76,15 +83,22 @@ class StageTimers:
             with self._lock:
                 self.totals[name] = self.totals.get(name, 0.0) + dt
 
+    def count(self, name: str, n: int) -> None:
+        """Add ``n`` to the count ``name`` (from any thread)."""
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + int(n)
+
     def total(self) -> float:
         return time.perf_counter() - self._t0
 
     def merge_from(self, other: "StageTimers") -> None:
         """Fold a worker's timers in (parallel shard readers): stage totals
-        are summed CPU-time-style, so per-batch columns stay meaningful;
-        wall-clock `total()` remains this timer's own."""
+        and counts are summed CPU-time-style, so per-batch columns stay
+        meaningful; wall-clock `total()` remains this timer's own."""
         for k, v in other.totals.items():
             self.totals[k] = self.totals.get(k, 0.0) + v
+        for k, v in other.counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
         for k, v in other.first.items():
             self.first[k] = min(v, self.first.get(k, v))
         self.num_batches += other.num_batches
@@ -118,6 +132,8 @@ class StageTimers:
                     % (name + " time", t, t / nb),
                     file=out,
                 )
+        for name in sorted(self.counts):
+            print("count %-21s: \t%10i" % (name, self.counts[name]), file=out)
         if self.total_reads and total > 0:
             print("", file=out)
             print(
@@ -132,6 +148,9 @@ class _NoTimers:
 
     def stage(self, name: str):
         return nullcontext()
+
+    def count(self, name: str, n: int) -> None:
+        pass
 
 
 NO_TIMERS = _NoTimers()
