@@ -44,9 +44,12 @@ Phases, each printing its own lines:
    and past every read's end, 4000-40000), k-mers off and on; every
    integer field and the pass mask exact,
    ``acc_quality`` to 1e-4.  Also at phase 8's batch shape (512 x 89472,
-   mixed lengths, padding rows) and on the 512 x 32768 timed batch, with
-   the NanoFilt-style filter too.  Then K2 timed against the twin on
-   both, as in phase 3.
+   mixed lengths, padding rows), on the 512 x 32768 timed batch, with
+   the NanoFilt-style filter too, and at the block shape of the
+   benchmark's Nanopore cell (1280 x 126208: 1,250 reads of log-normal
+   lengths up to 126,106 and 30 padding rows, per-read mean qualities,
+   the cell's filter; K2's launches counted from zero just before it).
+   Then K2 timed against the twin on the last three, as in phase 3.
 8. Long reads end to end: about 10,000 reads of 2-30 kb plus a few dozen
    of 66-90 kb (lcap past 65536), unbinned qualities; ``hpgq_torch.stats``
    with ``kmers=True``, with a NanoFilt-style filter and with a mean
@@ -703,12 +706,41 @@ def phase_breakdown(tmp, smi):
 # ---------------------------------------------------------------- phase 7
 
 K2_TIME_SHAPE = (512, 32768)
+# the long-read blocks of the benchmark's Nanopore cell
+# (ont_chunk_gz_stats_filter): a 16 MB reader block of a 4,000-read MinION
+# chunk is ~1,250 reads, padded to a multiple of 64 rows, in the lcap of
+# the chunk's longest read (126,106), with the cell's filter
+ONT_BLOCK = (1280, 126208)
+ONT_FILTER = dict(read_length_range=(1000, 1000000),
+                  read_quality_range=(7, 60))
 
 
-def compare_k2(t, lcap, settings, label):
+def ont_block(seed, shape=ONT_BLOCK, n=1250, longest=126106):
+    """(codes, quals, lens, valid) numpy of a block as the Nanopore cell's
+    reads pack it: ``n`` reads of log-normal lengths (median 3,882, sigma
+    1.0, one of ``longest``), then padding rows (length 0, not valid);
+    each read's qualities drawn around a mean of its own (normal, median
+    Q10, sd 2.5, Q4-20; each base sd 4, Q1-40), unbinned; no N."""
+    B, L = shape
+    rng = np.random.default_rng(seed)
+    lens = np.zeros(B, np.int32)
+    lens[:n] = np.clip(rng.lognormal(np.log(3882), 1.0, n), 1, longest)
+    lens[rng.integers(n)] = longest
+    inside = np.arange(L)[None, :] < lens[:, None]
+    codes = np.where(inside, rng.integers(0, 4, (B, L), dtype=np.int8),
+                     np.int8(5))
+    means = np.clip(10 + 2.5 * rng.standard_normal((B, 1), np.float32), 4, 20)
+    q = means + np.float32(4) * rng.standard_normal((B, L), np.float32)
+    quals = np.where(inside, np.clip(np.rint(q), 1, 40).astype(np.uint8) + 33,
+                     np.uint8(0))
+    return codes, quals, lens, np.arange(B) < n
+
+
+def compare_k2(t, lcap, settings, label, kmers_settings=(False, True)):
     """K2 (through ``make_batch_partials``) against the plain twin on the
-    tensors ``t`` under each filter setting, k-mers off and on; returns
-    (max abs err, the last kernel partials)."""
+    tensors ``t`` under each filter setting, k-mers off and on (or as
+    ``kmers_settings`` says); returns (max abs err, the last kernel
+    partials)."""
     import torch
 
     from hpgq_torch.kernels.stats_cuda import make_batch_partials
@@ -716,14 +748,15 @@ def compare_k2(t, lcap, settings, label):
 
     err = 0.0
     for name, crit in settings.items():
-        for kmers in (False, True):
+        for kmers in kmers_settings:
             k = make_batch_partials(lcap, 33, crit, kmers)(*t)
             p = fused_partials(*t, lcap, 33, crit, kmers)
             torch.cuda.synchronize()
             err = max(err, compare_partials(
                 k, p, "%s / %s / kmers %s" % (label, name, kmers)))
-    say("k2", "%s: K2 == plain twin for %d filter settings x k-mers off/on"
-        % (label, len(settings)))
+    say("k2", "%s: K2 == plain twin for %d filter settings x k-mers %s"
+        % (label, len(settings),
+           "/".join("on" if k else "off" for k in kmers_settings)))
     return err, k
 
 
@@ -812,13 +845,30 @@ def phase_k2(dev):
     check(stats_cuda.LAUNCHES_K2 - before == 2 * (3 + sum(
         len(crits) + len(c[6]) for c in cases if c[1])),
         "K2 launch count %d" % (stats_cuda.LAUNCHES_K2 - before))
+
+    # the Nanopore cell's block, with its filter, k-mers off as in the
+    # cell: one K2 call (launches A and B)
+    ont = {"the Nanopore cell's": filter_criteria(**ONT_FILTER)}
+    ont_t = [torch.from_numpy(a).to(dev) for a in ont_block(797)]
+    reset_counts()
+    err, k = compare_k2(ont_t, ONT_BLOCK[1], ont, "the Nanopore cell's "
+                        "block %dx%d" % ONT_BLOCK, kmers_settings=(False,))
+    max_err = max(max_err, err)
+    check(launch_counts() == {"K1": 0, "K1 2u": 0, "K2": 1},
+          "the Nanopore cell's block: launches %s" % launch_counts())
+    n_pass = int(k["_num_passed"])
+    check(0 < n_pass < int(ont_t[3].sum()),
+          "the Nanopore cell's block: %d of %d reads passed its filter"
+          % (n_pass, int(ont_t[3].sum())))
     out = {}
     for label, t, lcap, crit in (
             ("512x32768, no filter (one sweep)", t, L, None),
             ("512x32768, NanoFilt-style filter (two sweeps)", t, L,
              nanofilt["nanofilt"]),
             ("phase 8's batch 512x89472, NanoFilt-style filter", long_t,
-             89472, nanofilt["nanofilt"])):
+             89472, nanofilt["nanofilt"]),
+            ("the Nanopore cell's block %dx%d, its filter" % ONT_BLOCK,
+             ont_t, ONT_BLOCK[1], ont["the Nanopore cell's"])):
         codes, quals, lens, valid = t
         Bt, Lt = codes.shape
         nbases = int(lens.clamp(0, Lt).sum())

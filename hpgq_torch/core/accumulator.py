@@ -21,8 +21,6 @@ from ..device import resolve_device
 from ..kernels.stats_torch import MIN_LENGTH_INIT, zero_partials
 from ..kernels.step import make_stats_step, make_stats_step2u
 
-_FLOAT_KEYS = ("acc_quality", "acc_quality_comp")
-
 
 def resolve_wire(wire=None, device="cuda"):
     """'bitpack' | None.  Precedence: an explicit format, then the
@@ -45,11 +43,18 @@ def resolve_wire(wire=None, device="cuda"):
 
 def from_jax_partials(host: dict, device) -> dict:
     """A JAX accumulator's partials (``stats_jnp.zero_partials`` layout, as
-    numpy arrays) -> the port's accumulator dict on ``device``."""
-    return {k: torch.tensor(np.asarray(v), device=device,  # always a copy
-                            dtype=torch.float32 if k in _FLOAT_KEYS
-                            else torch.int64)
-            for k, v in host.items()}
+    numpy arrays) -> the port's accumulator dict on ``device``: the f32
+    ``acc_quality`` less its Kahan term ``acc_quality_comp`` becomes the
+    port's float64 carry."""
+    out = {k: torch.tensor(np.asarray(v), device=device,  # always a copy
+                           dtype=torch.int64)
+           for k, v in host.items()
+           if k not in ("acc_quality", "acc_quality_comp")}
+    out["acc_quality"] = torch.tensor(
+        float(np.float64(host["acc_quality"])
+              - np.float64(host["acc_quality_comp"])),
+        dtype=torch.float64, device=device)
+    return out
 
 
 def from_jax_cgr_acc(host: dict, device) -> dict:

@@ -254,7 +254,7 @@ def run_stats_sharded(opts: StatsOptions,
     crit = opts.criteria if opts.filter_on else None
     br = _batch_reads(opts, dev)
     sess = StatsSession(opts.quality_encoding_value, crit, batch_reads=br,
-                        device=dev, kmers_on=opts.kmers_on)
+                        device=dev, kmers_on=opts.kmers_on, timers=timers)
     path = opts.in_filename
     ck_path = _striped_checkpoint(pg, [path], opts.checkpoint_path)
     ck = carry = offset = None
@@ -317,7 +317,7 @@ def _run_stats_sharded_paired(opts, timers, pg, report: bool):
         (s1, e1), (s2, e2) = (0, None), (0, None)
     sess = PairedStatsSession(opts.quality_encoding_value, crit,
                               batch_reads=_batch_reads(opts, dev), device=dev,
-                              kmers_on=opts.kmers_on)
+                              kmers_on=opts.kmers_on, timers=timers)
     ck = carry1 = carry2 = None
     if opts.checkpoint_path:
         ck = _RotatingRankCheckpoint(pg, opts.checkpoint_path, json.dumps({

@@ -309,9 +309,10 @@ def prepare_k2(codes, quals, lens, valid, lcap: int, phred: int, crit=None):
             torch.cuda.current_stream(dev).cuda_stream), "K2", lib)
         return True
 
-    # f32 per-row means summed in a fixed order -> the same value every run
-    return launch, lambda: out.partials(out.f32.sum(), out.bpn.sum(dim=1),
-                                        crit)
+    # f32 per-row means summed in float64, in a fixed order: the same
+    # value every run
+    return launch, lambda: out.partials(out.f32.sum(dtype=torch.float64),
+                                        out.bpn.sum(dim=1), crit)
 
 
 def batch_partials_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,

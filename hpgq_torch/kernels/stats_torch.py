@@ -11,8 +11,10 @@ and the GPU checks hold the kernels against it on the same tensors.
 
 Differences from the jnp module, all deliberate:
 
-* Partials and the running accumulator are int64 (``acc_quality`` and its
-  Kahan compensation stay f32), so no host flush window is needed.
+* Partials and the running accumulator are int64, so no host flush window
+  is needed.  ``acc_quality``, the sum of the per-read f32 means, is
+  summed and carried in float64 (the jnp module carries it in f32 with a
+  Kahan term).
 * :func:`merge_into` updates the accumulator in place: the step owns it,
   and the in-place add saves one allocation per field and batch.
 * Every histogram key is integer math [D1]; the per-read mean is the f32
@@ -45,7 +47,7 @@ MIN_LENGTH_INIT = 100000  # reference init, src/stats_fastq.c:24
 
 
 def zero_partials(lcap: int, kmers_on: bool = False, device="cuda") -> dict:
-    """Zeroed accumulator dict on ``device`` (int64 except ``acc_quality*``),
+    """Zeroed accumulator dict on ``device`` (int64 except ``acc_quality``),
     with the ``kmer_counts`` / ``kmer_per_nt`` fields when ``kmers_on``.
     Raises :class:`~hpgq_torch.device.DeviceUnavailable` for a CUDA device
     this machine lacks."""
@@ -62,10 +64,8 @@ def zero_partials(lcap: int, kmers_on: bool = False, device="cuda") -> dict:
         "min_length": torch.full((), MIN_LENGTH_INIT, dtype=torch.int64,
                                  device=device),
         "max_length": z(),
-        # Kahan-compensated f32 sum of per-read mean raw qualities [D1]
-        "acc_quality": torch.zeros((), dtype=torch.float32, device=device),
-        "acc_quality_comp": torch.zeros((), dtype=torch.float32,
-                                        device=device),
+        # float64 sum of the per-read f32 mean raw qualities [D1]
+        "acc_quality": torch.zeros((), dtype=torch.float64, device=device),
         "base_totals": z(5),  # A C G T N
         "length_hist": z(lcap + 1),
         "quality_hist": z(QUAL_BINS),
@@ -233,7 +233,8 @@ def batch_partials(codes, quals, lens, valid, lcap: int):
         if B else torch.tensor(MIN_LENGTH_INIT, device=codes.device),
         "max_length": torch.where(valid, lens64, 0).max()
         if B else torch.tensor(0, device=codes.device),
-        "acc_quality": torch.where(valid, mean_q, 0.0).sum(),
+        "acc_quality": torch.where(valid, mean_q, 0.0).sum(
+            dtype=torch.float64),
         "base_totals": (base_counts * v64[None, :]).sum(dim=1),
     }
 
@@ -336,12 +337,7 @@ def merge_into(acc: dict, p: dict) -> dict:
     acc["acc_length"] += p["acc_length"]
     torch.minimum(acc["min_length"], p["min_length"], out=acc["min_length"])
     torch.maximum(acc["max_length"], p["max_length"], out=acc["max_length"])
-    # Kahan step for the f32 mean-quality sum (each op its own kernel, so
-    # nothing reassociates the compensation away)
-    y = p["acc_quality"] - acc["acc_quality_comp"]
-    t = acc["acc_quality"] + y
-    acc["acc_quality_comp"].copy_((t - acc["acc_quality"]) - y)
-    acc["acc_quality"].copy_(t)
+    acc["acc_quality"] += p["acc_quality"]  # carried in float64
     for k in ("base_totals", "length_hist", "quality_hist", "gc_hist",
               "cov_per_nt", "qual_per_nt", "base_per_nt"):
         acc[k] += p[k]

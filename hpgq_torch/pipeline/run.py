@@ -340,7 +340,7 @@ def _run_stats_parallel(opts, timers, crit, br, nshards: int, device):
         with _stream_ctx(device):
             sess = StatsSession(opts.quality_encoding_value, crit,
                                 batch_reads=br, device=device,
-                                kmers_on=opts.kmers_on)
+                                kmers_on=opts.kmers_on, timers=t)
             with FastqReader(opts.in_filename,
                              batch_size=_reader_batch(opts, device),
                              start_offset=rng[0], end_offset=rng[1],
@@ -499,7 +499,7 @@ def _stream_stats(opts, timers, dev):
     sess = StatsSession(opts.quality_encoding_value, crit, batch_reads=br,
                         device=dev,
                         lcap=max(128, resumed.lcap) if resumed else 128,
-                        kmers_on=opts.kmers_on)
+                        kmers_on=opts.kmers_on, timers=timers)
     if resumed:
         resumed.ensure_length(sess.lcap)
         sess.acc.counters = resumed
@@ -533,7 +533,7 @@ def _run_stats_paired(opts, timers, crit, br, dev):
     ``hpgq``, and the pair tallies copied into both counters."""
     sess = PairedStatsSession(opts.quality_encoding_value, crit,
                               batch_reads=br, device=dev,
-                              kmers_on=opts.kmers_on)
+                              kmers_on=opts.kmers_on, timers=timers)
     ck_path = opts.checkpoint_path
     ck_every = opts.checkpoint_every or 50
     ck_key = (_stats_config_key(opts, crit) + "|paired:%s"

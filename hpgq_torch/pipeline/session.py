@@ -7,12 +7,22 @@ current bucket finishes the device accumulator and rebuilds it wider (the
 host counters carry over, since merging is associative), which also moves
 the batches from K1 to K2 once the bucket passes 4096.
 
+With a pass's timers, a session times each growth (the ``grow`` stage on
+the feeding thread: the fold of the device accumulator to the host and
+the wider one's allocation) and counts the growths (``grow``) and, on the
+packing thread, the bytes of each long-read (K2) block bound for the
+device (``long-bytes``) and the share of them that lies past each read's
+end (``long-pad-bytes``).
+
 Rows: short-read blocks (L <= 4096, K1) are padded to
 ``bucket_rows``' 16,384-row buckets as in ``hpgq``.  A
-long-read block (K2) is padded only to a multiple of
-:data:`LONG_ROW_MULTIPLE`: those buckets exist to bound XLA's compiled
-shapes, eager PyTorch has no shape cache, and a 16 MB block of 10 kb reads
-holds only a few hundred reads, so 16,384 rows would be mostly padding.
+long-read block (K2) goes to the device as its length classes
+(:func:`long_parts`), each packed at its own width and padded only to a
+multiple of :data:`PART_ROW_MULTIPLE` rows: those buckets exist to bound
+XLA's compiled shapes, eager PyTorch has no shape cache, and a 16 MB block
+of 10 kb reads holds only a few hundred reads, so 16,384 rows would be
+mostly padding.  On the device each class is padded out to the session's
+width (``unwire``), where the copy costs next to nothing.
 """
 
 from __future__ import annotations
@@ -22,10 +32,12 @@ import contextlib
 import os
 import threading
 
+import numpy as np
 import torch
 
 from ..core.counters import StatsCounters
 from ..device import resolve_device
+from ..io.fastq import RecordBlock
 from ..io.packer import (
     bucket_rows,
     pack_block,
@@ -53,8 +65,10 @@ from ..kernels.wire_torch import (
     wire_unbits2c,
     wire_unqn8,
 )
+from ..utils.timers import NO_TIMERS
 
 LONG_ROW_MULTIPLE = 64  # row padding of a long-read (K2) block
+PART_ROW_MULTIPLE = 8  # row padding of one length class of a K2 block
 
 # batches per (device type, wire tier) through ShapeCachedFn and
 # ShapeCachedPairFn since the last reset, one per mate: shows where the
@@ -93,17 +107,58 @@ def payload_len(payload) -> int:
     return bitwire_logical_len(buf.shape[1])
 
 
+def long_parts(block) -> list:
+    """A block bound for K2 as its length classes, widest first: its reads
+    in order of falling length, cut where the width rounded up to the next
+    power of two times 128 changes, each class a RecordBlock over the
+    block's buffer.  Packed each at its own width, most of a long block's
+    columns past its reads' ends stay off the wire; the counters are sums
+    over reads, so the order of the reads does not change them."""
+    lens = block.seq_lens
+    if lens.shape[0] == 0:
+        return []
+    order = np.argsort(-lens, kind="stable")
+    cls = np.ceil(np.log2(np.maximum(lens[order], 1) / 128.0)).clip(0)
+    cuts = np.flatnonzero(np.diff(cls)) + 1
+    return [RecordBlock(block.buf, block.starts[idx], block.ends[idx],
+                        block.base_offset)
+            for idx in np.split(order, cuts)]
+
+
+def _is_parts(payload) -> bool:
+    """A long block's ``("parts", args, ...)``."""
+    return (isinstance(payload, tuple) and len(payload) > 0
+            and isinstance(payload[0], str) and payload[0] == "parts")
+
+
+def _count_long(timers, block, L: int, rows: int, host) -> None:
+    """Count a block bound for K2 (one of :func:`long_parts`, or a mate's
+    block), packed ``L`` columns wide, into ``timers``: its host payload's
+    bytes (``long-bytes``) and their share past each read's end, pad rows whole
+    (``long-pad-bytes``: the bytes times the ``rows x L`` columns past the
+    reads over all of them)."""
+    parts = host if isinstance(host, tuple) else (host,)
+    nbytes = sum(a.nbytes for a in parts if isinstance(a, np.ndarray))
+    cells = rows * L
+    bases = int(block.seq_lens.sum(dtype=np.int64))
+    pad = nbytes * (cells - bases) // cells
+    timers.count("long-bytes", nbytes)
+    timers.count("long-pad-bytes", pad)
+
+
 class StatsSession:
     """Streaming single-end stats accumulation with length growth."""
 
     def __init__(self, phred, crit=None, batch_reads=16384, device="cuda",
-                 lcap: int = 128, wire="auto", kmers_on: bool = False):
+                 lcap: int = 128, wire="auto", kmers_on: bool = False,
+                 timers=NO_TIMERS):
         self.phred = phred
         self.crit = crit
         self.batch_reads = batch_reads
         self.device = resolve_device(device)
         self.wire = wire
         self.kmers_on = kmers_on
+        self.timers = timers
         self.acc = DeviceAccumulator(lcap, phred, crit, self.device, wire,
                                      kmers_on)
 
@@ -112,26 +167,46 @@ class StatsSession:
         return self.acc.lcap
 
     def _grow(self, lcap: int):
-        old = self.acc.finish()
-        self.acc = DeviceAccumulator(lcap, self.phred, self.crit, self.device,
-                                     self.wire, self.kmers_on)
-        self.acc.counters = old
-        old.ensure_length(lcap)
+        with self.timers.stage("grow"):
+            old = self.acc.finish()
+            self.acc = DeviceAccumulator(lcap, self.phred, self.crit,
+                                         self.device, self.wire,
+                                         self.kmers_on)
+            self.acc.counters = old
+            old.ensure_length(lcap)
+        self.timers.count("grow", 1)
 
     def pack(self, block, batch_reads: int = 0):
         """Host-pack a RecordBlock into the ``feed_packed`` arguments as
         numpy arrays (:func:`pack_payload`).  Reads ``self.lcap`` once, so
         a pool thread may pack while the feeding thread grows the
-        session."""
+        session.  A block bound for K2 goes as its length classes
+        (:func:`long_parts`), each packed at its own width: one
+        ``("parts", args, ...)`` argument, widest part first."""
         L = max(round_up(max(block.max_len(), 1), 128), self.lcap)
+        if L > MAX_LCAP:
+            return (("parts",) + tuple(self._pack_part(part)
+                                       for part in long_parts(block)),)
         rows = batch_rows(block.num_reads, L, batch_reads or self.batch_reads)
         p = pack_payload(block, L, rows, self.acc.wire)
+        return p if self.acc.wire is None else (p,)
+
+    def _pack_part(self, part):
+        L = round_up(max(part.max_len(), 1), 128)
+        rows = round_up(part.num_reads, PART_ROW_MULTIPLE)
+        p = pack_payload(part, L, rows, self.acc.wire)
+        _count_long(self.timers, part, L, rows, p)
         return p if self.acc.wire is None else (p,)
 
     def feed_packed(self, codes, quals=None, lens=None, valid=None):
         """Feed one packed batch already on the session's device: a
         ``("2u", buf, exc, pal, n_valid, Lu)`` tuple, a bitpack buffer or
-        2c ``(buf, exc)`` tuple, or the four plain tensors."""
+        2c ``(buf, exc)`` tuple, the four plain tensors, or a long block's
+        ``("parts", args, ...)``, each part's ``args`` fed in turn."""
+        if _is_parts(codes):
+            for args in codes[1:]:
+                self.feed_packed(*args)
+            return
         payload = codes if quals is None else (codes, quals, lens, valid)
         L = payload_len(payload)
         if L > self.lcap:
@@ -159,13 +234,15 @@ class PairedStatsSession:
     only, since int64 state needs no overflow window."""
 
     def __init__(self, phred, crit=None, batch_reads=16384, device="cuda",
-                 lcap: int = 128, wire="auto", kmers_on: bool = False):
+                 lcap: int = 128, wire="auto", kmers_on: bool = False,
+                 timers=NO_TIMERS):
         self.phred = phred
         self.crit = crit
         self.batch_reads = batch_reads
         self.device = resolve_device(device)
         self.wire = resolve_wire(wire, self.device)
         self.kmers_on = kmers_on
+        self.timers = timers
         self._zero_counters()
         self._rebuild(lcap)
 
@@ -204,16 +281,22 @@ class PairedStatsSession:
         L = max(round_up(max(b1.max_len(), b2.max_len(), 1), 128), self.lcap)
         rows = batch_rows(max(b1.num_reads, b2.num_reads), L,
                           self.batch_reads)
-        return (pack_payload(b1, L, rows, self.wire),
+        pair = (pack_payload(b1, L, rows, self.wire),
                 pack_payload(b2, L, rows, self.wire))
+        if L > MAX_LCAP:
+            for b, p in zip((b1, b2), pair):
+                _count_long(self.timers, b, L, rows, p)
+        return pair
 
     def feed_pair_packed(self, in1, in2) -> None:
         """One step over a packed pair already on the device; never waits
         on the device."""
         L = max(payload_len(in1), payload_len(in2))
         if L > self.lcap:
-            self.flush()
-            self._rebuild(round_up(L, 128))
+            with self.timers.stage("grow"):
+                self.flush()
+                self._rebuild(round_up(L, 128))
+            self.timers.count("grow", 1)
         self._acc1, self._acc2 = self._step(self._acc1, self._acc2, in1, in2)
         self._dirty = True
 
@@ -243,7 +326,8 @@ class PairedStatsSession:
 def to_device(packed: tuple, device, non_blocking: bool = False,
               keep: list = None) -> tuple:
     """Move a :meth:`StatsSession.pack` result to ``device`` as tensors
-    (the 2u tuple's tag, ``n_valid`` and ``Lu`` stay host ints).  For CUDA
+    (the tags of a 2u tuple and of a long block's parts, and the 2u tuple's
+    ``n_valid`` and ``Lu``, stay host values).  For CUDA
     the host arrays go through pinned buffers, which are appended to
     ``keep`` when given, so a caller can hold them until the copy is done."""
     def put(a):
@@ -257,6 +341,8 @@ def to_device(packed: tuple, device, non_blocking: bool = False,
 
     def move(x):
         if isinstance(x, tuple):
+            if _is_parts(x):
+                return (x[0],) + tuple(move(a) for a in x[1:])
             if x and isinstance(x[0], str):  # ("2u", buf, exc, pal, n, Lu)
                 return (x[0],) + tuple(put(a) for a in x[1:4]) + x[4:]
             return tuple(move(a) for a in x)

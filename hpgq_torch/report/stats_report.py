@@ -45,6 +45,7 @@ import numpy as np
 
 from ..core.counters import StatsCounters
 from ..utils.cfmt import c_round, f32div, f32pct, fmt2f
+from .rows import write_rows
 from ..constants import KMER_K, MAX_VALUE, MIN_VALUE, NUM_KMERS
 
 
@@ -169,16 +170,41 @@ def stats_report(counters: StatsCounters, opts, timing=None) -> None:
         report_kmers(in_filename, counters, out_dir)
 
 
-def _normalize_quality(quality: float, phred: int) -> int:
-    v = c_round(quality - phred)
-    if v != v:  # NaN (0/0 means on zero-read inputs): C (int)NaN on x86
-        return -(1 << 31)  # cvttsd2si indefinite value, INT_MIN
-    return int(v)
+def _normalize_quality(quality, phred: int):
+    """C ``(int)round(quality - phred)`` of a float, or an int64 array of it
+    for each element of an array; a NaN (0/0 means on zero-read inputs)
+    gives x86's ``(int)NaN``, INT_MIN (cvttsd2si's indefinite value)."""
+    v = np.asarray(c_round(np.asarray(quality) - phred))
+    finite = np.isfinite(v)
+    out = np.where(finite, v, 0).astype(np.int64)
+    out[~finite] = -(1 << 31)
+    return out if np.ndim(quality) else int(out)
 
 
 def _c_char(code: int) -> str:
-    """C ``%c`` of an int: printf converts via (unsigned char)."""
+    """C ``%c`` of an int: the low byte."""
     return chr(code & 0xFF)
+
+
+def _write_pos_lines(f, fmt: str, per_line: int, *columns) -> None:
+    """Write ``fmt`` for each row of ``columns``, ``per_line`` rows a line,
+    each full line ended by a newline (the last, if short, by none)."""
+    n = len(columns[0])
+    m = n - n % per_line
+    write_rows(f, fmt * per_line + "\n", *[col[j:m:per_line]
+                                           for j in range(per_line)
+                                           for col in columns])
+    write_rows(f, fmt * (n - m), *[col[m + j:m + j + 1]
+                                   for j in range(n - m) for col in columns])
+
+
+def _per_nt(a, n: int) -> np.ndarray:
+    """The first ``n`` entries of the per-position array ``a``, zero past
+    its end."""
+    out = np.zeros(n, np.int64)
+    m = min(n, a.shape[0])
+    out[:m] = a[:m]
+    return out
 
 
 def report_summary(in_filename, counters: StatsCounters, opts, out_dir):
@@ -247,13 +273,11 @@ def report_summary(in_filename, counters: StatsCounters, opts, out_dir):
         )
         f.write("\n")
         f.write("Mean quality per nucleotide position\n")
-        for k in range(c.max_length):
-            acc = int(c.acc_quality_per_nt[k]) if k < c.lcap else 0
-            cnt = int(c.count_quality_per_nt[k]) if k < c.lcap else 0
-            qual = _normalize_quality(f32div(1.0 * acc, cnt), c.phred)
-            f.write("\tpos. %i: %i [%s]\t" % (k + 1, qual, _c_char(qual + c.phred)))
-            if (k + 1) % 5 == 0:
-                f.write("\n")
+        quals = _normalize_quality(
+            f32div(_per_nt(c.acc_quality_per_nt, c.max_length),
+                   _per_nt(c.count_quality_per_nt, c.max_length)), c.phred)
+        _write_pos_lines(f, "\tpos. %i: %i [%c]\t", 5,
+                         np.arange(1, len(quals) + 1), quals, quals + c.phred)
         f.write("\n")
         if c.kmers_on:
             f.write("K-mers (top 20)\n")
@@ -266,10 +290,9 @@ def report_summary(in_filename, counters: StatsCounters, opts, out_dir):
 def report_length(in_filename, counters: StatsCounters, out_dir):
     c = counters
     data_filename = os.path.join(out_dir, in_filename + ".length.histogram.data")
+    hist = _per_nt(c.length_hist, c.max_length + 1)[1:]
     with open(data_filename, "w", newline="\n") as f:
-        for i in range(1, c.max_length + 1):
-            v = int(c.length_hist[i]) if i < c.length_hist.shape[0] else 0
-            f.write("%i\t%i\n" % (i, v))
+        write_rows(f, "%i\t%i\n", np.arange(1, len(hist) + 1), hist)
     graph = ReportGraph(
         title="Read Length Histogram",
         xlabel="Read length",
@@ -317,12 +340,13 @@ def report_quality(in_filename, counters: StatsCounters, out_dir):
     # quality per nt (integer-division variant; later overwritten by
     # report_nt_content — reference call order, src/stats_report.c:49-50)
     data_filename = os.path.join(out_dir, in_filename + ".quality.per.nt.data")
+    n = c.max_length
+    # count > 0 at every position below max_length; the integer quotient
+    # less phred is whole, so C round() leaves it as it is
+    vals = (c.acc_quality_per_nt[:n] // c.count_quality_per_nt[:n]
+            - c.phred).astype(np.float64)
     with open(data_filename, "w", newline="\n") as f:
-        for k in range(c.max_length):
-            acc = int(c.acc_quality_per_nt[k])
-            cnt = int(c.count_quality_per_nt[k])  # > 0 for every k < max_length
-            val = c_round(float(acc // cnt) - c.phred)
-            f.write("%i\t%s\n" % (k, fmt2f(val)))
+        write_rows(f, "%i\t%0.2f\n", np.arange(n), vals)
     graph = ReportGraph(
         title="Quality per Nucleotide Position",
         xlabel="Nucleotide position",
@@ -362,23 +386,16 @@ def report_nt_content(in_filename, counters: StatsCounters, out_dir):
         graph, data_filename, os.path.join(out_dir, in_filename + ".GC.histogram")
     )
 
-    def pos_counts(k):
-        a = int(c.base_per_nt[0, k])
-        cc = int(c.base_per_nt[1, k])
-        g = int(c.base_per_nt[2, k])
-        t = int(c.base_per_nt[3, k])
-        n = int(c.base_per_nt[4, k])
-        return a, t, g, cc, n
+    # per position: A C G T N counts, and their total
+    a, cc, g, t, nn = c.base_per_nt[:, :c.max_length]
+    total = a + t + g + cc + nn
 
     # GC per nt position
     data_filename = os.path.join(out_dir, in_filename + ".GC.per.nt.data")
+    gc = f32pct(g + cc, total)
+    keep = np.flatnonzero(gc > 1.0)
     with open(data_filename, "w", newline="\n") as f:
-        for k in range(c.max_length):
-            a, t, g, cc, n = pos_counts(k)
-            total = a + t + g + cc + n
-            val = f32pct(g + cc, total)
-            if val > 1.0:
-                f.write("%i\t%s\n" % (k + 1, fmt2f(val)))
+        write_rows(f, "%i\t%0.2f\n", keep + 1, gc[keep])
     graph = ReportGraph(
         title="GC Content per Nucleotide Position",
         xlabel="Nucleotide position",
@@ -396,12 +413,11 @@ def report_nt_content(in_filename, counters: StatsCounters, out_dir):
 
     # quality per nt (float-division variant; wins last-writer)
     data_filename = os.path.join(out_dir, in_filename + ".quality.per.nt.data")
+    n = c.max_length
+    quals = _normalize_quality(
+        f32div(c.acc_quality_per_nt[:n], c.count_quality_per_nt[:n]), c.phred)
     with open(data_filename, "w", newline="\n") as f:
-        for k in range(c.max_length):
-            acc = int(c.acc_quality_per_nt[k])
-            cnt = int(c.count_quality_per_nt[k])
-            qual = _normalize_quality(f32div(1.0 * acc, cnt), c.phred)
-            f.write("%i\t%i\n" % (k, qual))
+        write_rows(f, "%i\t%i\n", np.arange(n), quals)
     graph = ReportGraph(
         title="Quality per Nucleotide Position",
         xlabel="Nucleotide position",
@@ -420,20 +436,9 @@ def report_nt_content(in_filename, counters: StatsCounters, out_dir):
     # nucleotide content per position
     data_filename = os.path.join(out_dir, in_filename + ".nucleotides.data")
     with open(data_filename, "w", newline="\n") as f:
-        for k in range(c.max_length):
-            a, t, g, cc, n = pos_counts(k)
-            total = a + t + g + cc + n
-            f.write(
-                "%i\t%s\t%s\t%s\t%s\t%s\n"
-                % (
-                    k + 1,
-                    fmt2f(f32pct(a, total)),
-                    fmt2f(f32pct(t, total)),
-                    fmt2f(f32pct(g, total)),
-                    fmt2f(f32pct(cc, total)),
-                    fmt2f(f32pct(n, total)),
-                )
-            )
+        write_rows(f, "%i" + "\t%0.2f" * 5 + "\n",
+                   np.arange(1, c.max_length + 1),
+                   *[f32pct(x, total) for x in (a, t, g, cc, nn)])
     graph = ReportGraph(
         title="Nucleotide Content per Position",
         xlabel="Nucleotide position",

@@ -1,18 +1,22 @@
-"""The port's own copy of ``hpgq/utils/cfmt.py`` (the port imports nothing of
-``hpgq``); kept equal to it.
-
-C-compatible numeric formatting helpers.
+"""C-compatible numeric formatting helpers, of one value or of each element
+of an array (the port's counterpart of ``hpgq/utils/cfmt.py``, which takes
+one value at a time; the port imports nothing of ``hpgq``).
 
 The reference's reports are produced with C ``printf`` on values computed with
 C ``float`` arithmetic and libm ``round()``.  Byte-equivalence therefore needs:
 
 * ``c_round`` — round-half-away-from-zero (C99 ``round()``), not Python's
-  banker's rounding.  We bind libm's ``round`` directly when available so even
-  the 1-ulp edge cases (e.g. ``round(0.49999999999999994) == 0``) match.
-* ``f32div`` / ``f32mul`` — the reference computes percentages as
+  banker's rounding, from the exact fraction, so even the 1-ulp edge cases
+  (e.g. ``round(0.49999999999999994) == 0``) match.
+* ``f32div`` / ``f32pct`` — the reference computes percentages as
   ``100.0f * a / b`` in single precision before printing with ``%0.2f``
   (e.g. ``src/stats_report.c:118-124``); we reproduce the f32 intermediate.
 * ``fmt2f`` — ``%0.2f`` on the resulting double, identical to glibc printf.
+
+A scalar argument gives a Python ``float`` (``fmt2f``: a ``str``); an array
+gives a float64 array (``fmt2f``, of a 1-D array: a list of ``str``), element
+by element the same.  The per-position report files hold one line a position, 100k and
+more for long reads, so their arithmetic runs over whole arrays.
 
 Quirk note: several reference format strings contain a bare ``%`` followed by
 a non-conversion character (``"%0.2f %\\n"``, ``"(%0.2f %)"`` at
@@ -20,58 +24,41 @@ a non-conversion character (``"%0.2f %\\n"``, ``"(%0.2f %)"`` at
 empirically), so the report writers emit the literal ``%`` / ``%)`` text.
 """
 
-import ctypes
-import ctypes.util
 import math
 
-_libm_round = None
-try:  # bind C round() for exact semantics
-    _libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
-    _libm.round.restype = ctypes.c_double
-    _libm.round.argtypes = [ctypes.c_double]
-    _libm_round = _libm.round
-except OSError:  # pragma: no cover - non-glibc fallback
-    _libm_round = None
+import numpy as np
 
 
-def c_round(x: float) -> float:
+def _out(x: np.ndarray):
+    """A 0-d result as a Python float, any other as the array."""
+    return float(x) if x.ndim == 0 else x
+
+
+def c_round(x):
     """C99 round(): round half away from zero."""
-    x = float(x)
-    if _libm_round is not None:
-        return _libm_round(x)
-    if math.isnan(x) or math.isinf(x):  # pragma: no cover
-        return x
-    return math.copysign(math.floor(abs(x) + 0.5), x)  # pragma: no cover
+    x = np.asarray(x, dtype=np.float64)
+    whole = np.trunc(x)  # x - whole is exact: the fraction, sign of x
+    with np.errstate(invalid="ignore"):  # inf - inf
+        away = np.abs(x - whole) >= 0.5
+    return _out(np.where(away, whole + np.copysign(1.0, x), whole))
 
 
-def f32(x) -> float:
-    """Value of x as a C float (f32), returned as a Python double."""
-    import numpy as np
-
-    return float(np.float32(x))
-
-
-def f32pct(count, total) -> float:
+def f32pct(count, total):
     """C ``100.0f * count / total`` — the multiply happens in float32 too
     (drops bits for counts > 2^24), then the f32 division."""
-    import numpy as np
-
     with np.errstate(divide="ignore", invalid="ignore"):
-        return float(
-            np.float32(np.float32(100.0) * np.float32(count)) / np.float32(total)
-        )
+        return _out(((np.float32(100.0) * np.asarray(count, dtype=np.float32))
+                     / np.asarray(total, dtype=np.float32)).astype(np.float64))
 
 
-def f32div(a, b) -> float:
+def f32div(a, b):
     """``(float)a / b`` with float32 arithmetic, like C ``1.0f * a / b``."""
-    import numpy as np
-
     with np.errstate(divide="ignore", invalid="ignore"):
-        return float(np.float32(a) / np.float32(b))
+        return _out((np.asarray(a, dtype=np.float32)
+                     / np.asarray(b, dtype=np.float32)).astype(np.float64))
 
 
-def fmt2f(x: float) -> str:
-    """``%0.2f`` of a double (matches glibc printf, incl. nan/inf)."""
+def _fmt2f(x: float) -> str:
     if math.isnan(x):
         return "-nan" if math.copysign(1.0, x) < 0 else "nan"
     if math.isinf(x):
@@ -79,11 +66,14 @@ def fmt2f(x: float) -> str:
     return "%0.2f" % x
 
 
-def c_int_trunc(x: float) -> int:
-    """C double->int conversion (truncation toward zero)."""
-    return int(x)
-
-
-def c_uchar(x: int) -> int:
-    """C (unsigned char) cast of an int: mod 256."""
-    return int(x) & 0xFF
+def fmt2f(x):
+    """``%0.2f`` of a double (matches glibc printf, incl. nan/inf), or
+    the list of it for each element of a 1-D array."""
+    x = np.asarray(x, dtype=np.float64)
+    if x.ndim == 0:
+        return _fmt2f(float(x))
+    # one format call for all; glibc signs a nan, Python does not
+    out = ("%0.2f\n" * len(x) % tuple(x.tolist())).split("\n")[:-1]
+    for i in np.flatnonzero(~np.isfinite(x)).tolist():
+        out[i] = _fmt2f(float(x[i]))
+    return out

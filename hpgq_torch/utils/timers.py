@@ -14,7 +14,9 @@ does each piece of work:
   splits into ``wait-reader`` (the reader had not handed the block over)
   and ``wait-pack`` (its pack and copy were not done);
 * ``compute`` (the consumer feeding the device step) with ``fold`` (the
-  device's partials folded into the host counters) inside it, ``write``,
+  device's partials folded into the host counters) and ``grow`` (a stats
+  session's growth to wider reads: the fold and a wider accumulator)
+  inside it, ``write``,
   ``checkpoint`` and ``reporting``; a sharded run's ``vote`` and
   ``finish-merge``, and a launched rank's ``launch-*`` start-up split.
 
@@ -27,7 +29,9 @@ a stage costs two clock reads, a lock and the profiler flag's test.
 Besides the stages, counts: integers summed under the same lock
 (``count``), such as the bytes each gzip piece inflated to, under the
 decoder that inflated it (``inflate-native-bytes``, or
-``inflate-zlib-bytes`` where the native library is not built); ``--t``
+``inflate-zlib-bytes`` where the native library is not built), or a
+stats session's growths (``grow``) and the bytes of its long-read blocks
+(``long-bytes``, of them ``long-pad-bytes`` past the reads' ends); ``--t``
 prints them after the stages."""
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from contextlib import contextmanager, nullcontext
 # the stages of --t's report in pipeline order, then any other in the
 # order first entered
 ORDER = ("inflate", "index", "pack", "h2d", "read", "wait-reader",
-         "wait-pack", "compute", "fold", "write", "checkpoint", "reporting")
+         "wait-pack", "compute", "fold", "grow", "write", "checkpoint",
+         "reporting")
 
 
 def _profiling() -> bool:

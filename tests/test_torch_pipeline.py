@@ -620,7 +620,8 @@ def test_cli_kmers_output_identical_to_hpgq(tmp_path, monkeypatch, corpus,
 
 def test_long_read_block_packs_few_rows(tmp_path):
     """A block of 40 reads of 5-12 kb (the K2 path) packs to at most 64
-    rows, not to a 16,384-row bucket; the counters still equal ``hpgq``'s
+    rows, not to a 16,384-row bucket, as its length classes (5-8 kb and
+    8-12 kb), each at its own width; the counters still equal ``hpgq``'s
     and the oracle's."""
     import hpgq
 
@@ -630,12 +631,17 @@ def test_long_read_block_packs_few_rows(tmp_path):
     with FastqReader(path, batch_size=10000) as rd:
         blocks = list(rd)
     assert len(blocks) == 1
-    packed = sess.pack(blocks[0])
-    buf = packed[0][0] if isinstance(packed[0], tuple) else packed[0]
-    assert buf.shape[0] <= 64
-    codes = StatsSession(33, batch_reads=10240, device="cpu",
-                         wire="off").pack(blocks[0])[0]
-    assert codes.shape == (64, -(-blocks[0].max_len() // 128) * 128)
+    tag, *parts = sess.pack(blocks[0])[0]
+    assert tag == "parts" and len(parts) == 2
+    bufs = [p[0][0] if isinstance(p[0], tuple) else p[0] for p in parts]
+    assert sum(b.shape[0] for b in bufs) <= 64
+    tag, *parts = StatsSession(33, batch_reads=10240, device="cpu",
+                               wire="off").pack(blocks[0])[0]
+    lens = np.sort(blocks[0].seq_lens)[::-1]
+    wide = int((lens > 8192).sum())
+    assert [p[0].shape for p in parts] == [
+        (-(-wide // 8) * 8, -(-int(lens[0]) // 128) * 128),
+        (-(-(40 - wide) // 8) * 8, -(-int(lens[wide]) // 128) * 128)]
     got = _api(path, str(tmp_path))
     ref = hpgq.stats(path, outdir=str(tmp_path / "ref"), batch_size=40,
                      read_length_range=(45, 140),
