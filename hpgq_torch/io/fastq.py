@@ -41,20 +41,24 @@ class FastqParseError(ValueError):
 
 
 class ReadaheadFile:
-    """Background decode thread over a serial file-like (plain gzip).
+    """Background decode thread over a forward-only file-like (plain gzip).
 
-    DEFLATE decode of a single-member gzip stream is inherently serial, but
-    it need not run on the pipeline's critical path: a daemon thread
-    inflates ahead into a bounded queue (``depth`` x ``chunk_bytes`` of
+    The decode need not run on the pipeline's critical path: a daemon
+    thread reads ahead into a bounded queue (``depth`` x ``chunk_bytes`` of
     decompressed readahead) while the consumer indexes/packs the previous
     chunks — the native decoder and zlib both release the GIL, so decode
-    genuinely overlaps the numpy and native-packer work.  This is the
+    genuinely overlaps the numpy and native-packer work.  The native
+    decoder spreads one member over a pool of threads where the file and
+    the cores allow (:class:`~hpgq_torch.io.native.inflate.GzipReader`);
+    this thread then waits for its output in order.  This is the
     plain-gzip analog of the BGZF reader's parallel block readahead
     (``hpgq_torch.io.bgzf``) and replaces the reference's in-thread
     ``gzFile`` reads (gzip-capable ``fastq_fopen``, src/stats_fastq.c:425).
-    Each piece's inflate is ``timers``' ``inflate`` stage; the wait for room
+    Each piece's read is ``timers``' ``inflate`` stage; the wait for room
     in the queue is not.  Each piece's bytes are counted under the file's
-    ``COUNTER`` (``inflate-native-bytes``), or ``inflate-zlib-bytes``."""
+    ``COUNTER`` (``inflate-native-bytes``), or ``inflate-zlib-bytes``, and
+    the parallel decoder's counts (``inflate-chunks``, ``inflate-markers``,
+    ``inflate-restarts``) beside them."""
 
     def __init__(self, fh, chunk_bytes: int = _CHUNK, depth: int = 4,
                  timers=NO_TIMERS):
@@ -67,6 +71,7 @@ class ReadaheadFile:
         self._fh = fh
         self._timers = timers
         self._counter = getattr(fh, "COUNTER", "inflate-zlib-bytes")
+        self._take_counts = getattr(fh, "take_counts", dict)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._cur = memoryview(b"")
         self._stop = threading.Event()
@@ -92,6 +97,8 @@ class ReadaheadFile:
                 with self._timers.stage("inflate"):
                     data = self._fh.read(chunk_bytes)
                 self._timers.count(self._counter, len(data))
+                for name, n in self._take_counts().items():
+                    self._timers.count(name, n)
                 if not put(data):
                     return
                 if not data:

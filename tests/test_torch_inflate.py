@@ -5,13 +5,21 @@ corrupt, truncated or padded input the exception class
 :class:`gzip.GzipFile` raises; and the reader (``FastqReader``) over it
 giving the blocks a plain file gives, counted by the stage timers.
 
+Each case runs on the one-thread decoder and on the parallel one, forced
+onto every input in small chunks; the parallel one also gives the
+one-thread one's bytes, class and message before each error.  Cases of
+its own hold it to streams whose chunks need the window before them (one
+stream with no flush; pigz's primed pieces), to independent pieces, to
+false block headers, and to errors in a later chunk.
+
 The ASan/UBSan build of ``inflate.cpp`` over these inputs and a few
-thousand mutated members runs with ``HPGQ_SANITIZE=1``, as
-``tests/test_sanitize.py`` does for the packer:
+thousand mutated members, through each entry point, runs with
+``HPGQ_SANITIZE=1``, as ``tests/test_sanitize.py`` does for the packer:
 
     HPGQ_SANITIZE=1 python -m pytest tests/test_torch_inflate.py -q
 """
 
+import ctypes
 import functools
 import gzip
 import io
@@ -35,6 +43,9 @@ from hpgq_torch.utils.timers import StageTimers
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PIECE = 16 << 20
+READERS = ("sequential", "parallel")
+# 3 workers, 4 KiB chunks: every input past a few kB is cut into chunks
+PARALLEL = (3, 4096)
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +97,8 @@ def _framed(raw: bytes, data: bytes, flags: int = 0, extra: bytes = b"xy",
     return head + raw + struct.pack("<II", zlib.crc32(data), len(data) & 0xFFFFFFFF)
 
 
-def _generator_member() -> "tuple[bytes, bytes]":
+def _generator_member(reads: int = 1200,
+                      piece_bases: int = 1 << 14) -> "tuple[bytes, bytes]":
     """The benchmark generator's file: one member of sync-flushed pieces
     deflated in parallel, here with pieces of 2**14 bases."""
     sys.path.insert(0, ROOT)
@@ -96,12 +108,12 @@ def _generator_member() -> "tuple[bytes, bytes]":
         sys.path.remove(ROOT)
     with open(os.path.join(ROOT, "benchmark", "configs",
                            "novaseq_se100_rta3.json")) as f:
-        config = dict(json.load(f), reads_per_file=1200)
+        config = dict(json.load(f), reads_per_file=reads)
     with open(os.path.join(ROOT, "benchmark", "traffic",
                            "stats_filter_gzip.json")) as f:
         traffic = json.load(f)
     old = generate.PIECE_BASES
-    generate.PIECE_BASES = 1 << 14
+    generate.PIECE_BASES = piece_bases
     try:
         with tempfile.TemporaryDirectory() as d:
             corpus = generate.make_corpus(config, traffic, 2**31 + 12345, d)
@@ -161,12 +173,20 @@ def _read_sizes(mode: str):
         yield PIECE
 
 
-def _native(path: str, mode: str = "piece") -> "tuple[bytes, type | None]":
-    """The text and the error of reading ``path`` natively, in the read
-    sizes ``mode`` names."""
+def _open(path: str, reader: str = "sequential") -> inflate.GzipReader:
+    return inflate.GzipReader(inflate.get_lib(), path, _parallel=(
+        (0, 0) if reader == "sequential" else PARALLEL if reader == "parallel"
+        else reader))
+
+
+def _read(path: str, mode: str = "piece", reader: str = "sequential"):
+    """The text, the error's class and message, and the parallel reader's
+    counts, of reading ``path`` natively in the read sizes ``mode`` names
+    (``reader``: sequential, parallel, or (workers, chunk bytes))."""
     out = bytearray()
-    try:
-        with inflate.open_gzip(path) as r:
+    err = None
+    with _open(path, reader) as r:
+        try:
             for n in _read_sizes(mode):
                 b = r.read(n)
                 assert isinstance(b, bytes)
@@ -174,9 +194,19 @@ def _native(path: str, mode: str = "piece") -> "tuple[bytes, type | None]":
                 if not b:
                     break
                 out += b
-    except (EOFError, OSError, zlib.error) as e:
-        return bytes(out), type(e)
-    return bytes(out), None
+        except (EOFError, OSError, zlib.error) as e:
+            err = e
+        counts = r.take_counts()
+    if err is None:
+        return bytes(out), None, None, counts
+    return bytes(out), type(err), str(err), counts
+
+
+def _native(path: str, mode: str = "piece",
+            reader: str = "sequential") -> "tuple[bytes, type | None]":
+    """The text and the error of reading ``path`` natively, in the read
+    sizes ``mode`` names."""
+    return _read(path, mode, reader)[:2]
 
 
 def _gzip(data: bytes) -> "tuple[bytes, type | None]":
@@ -203,12 +233,13 @@ def _put(tmp_path, data: bytes, name: str = "in.gz") -> str:
 # ---------------------------------------------------------------- valid
 
 
+@pytest.mark.parametrize("reader", READERS)
 @pytest.mark.parametrize("mode", ["piece", "odd", "byte"])
 @pytest.mark.parametrize("case", VALID_NAMES)
-def test_text_equals_gzip(lib, tmp_path, case, mode):
+def test_text_equals_gzip(lib, tmp_path, case, mode, reader):
     data, text = _valid_inputs()[case]
     assert gzip.decompress(data) == text
-    got, err = _native(_put(tmp_path, data), mode)
+    got, err = _native(_put(tmp_path, data), mode, reader)
     assert err is None
     assert got == text
 
@@ -336,32 +367,39 @@ def _error_inputs() -> "dict[str, bytes]":
     return cases
 
 
+@pytest.mark.parametrize("reader", READERS)
 @pytest.mark.parametrize("mode", ["piece", "odd"])
 @pytest.mark.parametrize("case", ERROR_NAMES)
-def test_error_class_equals_gzip(lib, tmp_path, case, mode):
+def test_error_class_equals_gzip(lib, tmp_path, case, mode, reader):
     data = _error_inputs()[case]
     want, want_err = _gzip(data)
     assert want_err is not None, "gzip reads this input"
-    got, err = _native(_put(tmp_path, data), mode)
-    assert err is want_err, (err, want_err)
+    path = _put(tmp_path, data)
+    got = _read(path, mode, reader)
+    assert got[1] is want_err, (got[1], want_err)
     # what was read before the error is the same text
-    n = min(len(got), len(want))
-    assert got[:n] == want[:n]
+    n = min(len(got[0]), len(want))
+    assert got[0][:n] == want[:n]
+    # and the one-thread decoder's bytes, class and message
+    assert got[:3] == _read(path, mode)[:3]
 
 
-def test_error_is_sticky_after_the_text_before_it(lib, tmp_path):
+@pytest.mark.parametrize("reader", READERS)
+def test_error_is_sticky_after_the_text_before_it(lib, tmp_path, reader):
     """Bytes decoded before a bad CRC come first; the error then repeats."""
-    with inflate.open_gzip(_put(tmp_path, _error_inputs()["crc"])) as r:
+    with _open(_put(tmp_path, _error_inputs()["crc"]), reader) as r:
         assert r.read(PIECE) == _text()[:20_000]
         for _ in range(2):
             with pytest.raises(gzip.BadGzipFile, match="CRC check failed"):
                 r.read(PIECE)
 
 
+@pytest.mark.parametrize("reader", READERS)
 @pytest.mark.parametrize("seed", range(6))
-def test_mutated_members_raise_gzip_class(lib, tmp_path, seed):
+def test_mutated_members_raise_gzip_class(lib, tmp_path, seed, reader):
     """Members with bytes flipped, dropped or inserted: the same class as
-    gzip (or the same text), and no crash."""
+    gzip (or the same text), and no crash; the parallel reader the
+    one-thread one's bytes, class and message."""
     rng = random.Random(seed)
     text = _text()[:30_000]
     bases = [_member(text, lv) for lv in (0, 1, 6, 9)] \
@@ -382,10 +420,169 @@ def test_mutated_members_raise_gzip_class(lib, tmp_path, seed):
         want, want_err = _gzip(data)
         with open(path, "wb") as f:
             f.write(data)
-        got, err = _native(path)
-        assert err is want_err, (seed, i, err, want_err)
-        if err is None:
-            assert got == want
+        got = _read(path, reader=reader)
+        assert got[1] is want_err, (seed, i, got[1], want_err)
+        if got[1] is None:
+            assert got[0] == want
+        if reader == "parallel":
+            assert got[:3] == _read(path)[:3], (seed, i)
+
+
+# ---------------------------------------------------------------- parallel
+
+# 4 workers, 64 KiB chunks over a few MB: chunks of about 200 kB of text
+BIG = (4, 1 << 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _big_text() -> bytes:
+    """FASTQ text as :func:`_text`'s, ~5 MB."""
+    recs = make_records(25_000, min_len=60, max_len=120, seed=7, n_prob=0.01,
+                        qual_bins=(2, 12, 23, 37))
+    return b"".join(h + b"\n" + s + b"\n+\n" + q + b"\n" for h, s, q in recs)
+
+
+def _pigz(text: bytes, level: int = 1, piece: int = 128 << 10) -> bytes:
+    """pigz's layout: one member of pieces each primed with the 32 KB of
+    text before it (a preset dictionary) and ended by a sync flush."""
+    body = b""
+    for at in range(0, len(text), piece):
+        zdict = text[max(0, at - 32768):at]
+        co = (zlib.compressobj(level, zlib.DEFLATED, -15, zdict=zdict) if zdict
+              else zlib.compressobj(level, zlib.DEFLATED, -15))
+        last = at + piece >= len(text)
+        body += co.compress(text[at:at + piece]) + co.flush(
+            zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH)
+    return _framed(body, text)
+
+
+def _parallel(tmp_path, data: bytes, reader=BIG) -> "tuple[bytes, dict]":
+    got, err, _, counts = _read(_put(tmp_path, data), reader=reader)
+    assert err is None
+    return got, counts
+
+
+@pytest.mark.parametrize("case", ["flush_free", "pigz"])
+def test_parallel_unknown_window(lib, tmp_path, case):
+    """Chunks of one stream with no flush, and of pigz's primed pieces,
+    reach back into the 32 KB before them: those decoded before that
+    window is known (at least all but the first that the reader starts
+    at its open) leave markers, resolved; the text byte for byte."""
+    text = _big_text()
+    data = _member(text, 1) if case == "flush_free" else _pigz(text)
+    got, counts = _parallel(tmp_path, data)
+    assert got == text
+    assert counts["inflate-chunks"] > 0
+    assert counts["inflate-markers"] > 0
+    assert counts["inflate-restarts"] == 0
+
+
+def test_parallel_independent_pieces(lib, tmp_path):
+    """The benchmark generator's pieces, each one deflate block here: a
+    chunk starts at a piece's first block (or at the sync flush before it)
+    and needs nothing before it, so no marker is left to resolve."""
+    data, text = _generator_member(reads=20_000, piece_bases=1 << 12)
+    got, counts = _parallel(tmp_path, data)
+    assert got == text
+    assert counts["inflate-chunks"] > 0
+    assert counts["inflate-markers"] == 0
+    assert counts["inflate-restarts"] == 0
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+def test_parallel_levels(lib, tmp_path, level):
+    """Levels 1, 6 and 9, and stored blocks (level 0: 65,535-byte blocks,
+    whose header a stored header a few bits before mimics)."""
+    text = _big_text()
+    got, counts = _parallel(tmp_path, _member(text, level))
+    assert got == text
+    assert counts["inflate-chunks"] > 0
+    assert counts["inflate-restarts"] == 0
+    assert (counts["inflate-markers"] > 0) == (level > 0)
+
+
+def test_parallel_random(lib, tmp_path):
+    """Random bytes at level 6 (stored blocks among Huffman ones)."""
+    data = random.Random(9).randbytes(3 << 20)
+    got, counts = _parallel(tmp_path, _member(data, 6))
+    assert got == data
+    assert counts["inflate-chunks"] > 0
+
+
+def test_parallel_false_headers_restart(lib, tmp_path):
+    """A stored stream of deflate data holds true dynamic headers at
+    false places: chunks found there do not join up and are decoded again
+    by one thread, counted, and the text comes out whole."""
+    raw = _raw(_text()) * 4
+    got, counts = _parallel(tmp_path, _member(raw, 0), (3, 20_000))
+    assert got == raw
+    assert counts["inflate-restarts"] > 0
+    assert counts["inflate-chunks"] > 0
+
+
+def _later_chunk_errors() -> "dict[str, bytes]":
+    text = _big_text()
+    good = _member(text, 1)
+    crc, isize = bytearray(good), bytearray(good)
+    crc[-8] ^= 1
+    isize[-4] ^= 1
+    return {"crc": bytes(crc), "isize": bytes(isize),
+            "truncated": good[:len(good) * 7 // 10],
+            "bad_code": good[:len(good) // 2] + b"\xff" * 64 + good[len(good) // 2 + 64:]}
+
+
+@pytest.mark.parametrize("case", ["crc", "isize", "truncated", "bad_code"])
+def test_parallel_errors_in_a_later_chunk(lib, tmp_path, case):
+    """A CRC or ISIZE mismatch, a truncation and bad data inside a chunk
+    past the first: gzip's class after the same text, and the one-thread
+    decoder's bytes, class and message."""
+    data = _later_chunk_errors()[case]
+    want, want_err = _gzip(data)
+    path = _put(tmp_path, data)
+    got = _read(path, "odd", BIG)
+    assert got[1] is want_err and want_err is not None
+    n = min(len(got[0]), len(want))
+    assert got[0][:n] == want[:n]
+    assert got[:3] == _read(path, "odd")[:3]
+    assert got[3]["inflate-chunks"] > 0
+
+
+def test_parallel_two_members(lib, tmp_path):
+    """The first member in chunks, the second by one thread."""
+    text = _big_text()
+    half = len(text) // 2
+    got, counts = _parallel(tmp_path, _member(text[:half], 1) + _member(text[half:], 6))
+    assert got == text
+    assert counts["inflate-chunks"] > 0
+
+
+def test_crc32_combine(lib):
+    """The CRC of A then B from theirs and B's length, as zlib.crc32."""
+    lib.hpgq_crc32_combine.restype = ctypes.c_uint32
+    lib.hpgq_crc32_combine.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                       ctypes.c_int64]
+    rng = random.Random(3)
+    for n in (0, 1, 7, 4096, 1 << 20, 3_000_001):
+        a, b = rng.randbytes(rng.randrange(100)), rng.randbytes(n)
+        assert lib.hpgq_crc32_combine(zlib.crc32(a), zlib.crc32(b), n) == zlib.crc32(a + b)
+
+
+@pytest.mark.parametrize("size,cores,ranks,want", [
+    (8 << 20, 8, None, 4), ((8 << 20) - 1, 8, None, 0), (8 << 20, 3, None, 0),
+    (8 << 20, 4, None, 2), (8 << 20, 8, "4", 2), (8 << 20, 16, "2", 4),
+    (8 << 20, 32, "x", 16)])
+def test_workers_rule(tmp_path, monkeypatch, size, cores, ranks, want):
+    """Two chunks and four usable cores engage the parallel reader, with
+    half the cores shared among the host's local ranks, at least 2."""
+    path = tmp_path / "f.gz"
+    with open(path, "wb") as f:
+        f.truncate(size)
+    monkeypatch.setattr(inflate.os, "sched_getaffinity", lambda pid: set(range(cores)))
+    if ranks is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", ranks)
+    assert inflate._workers(str(path)) == want
 
 
 # ---------------------------------------------------------------- reader
@@ -414,6 +611,30 @@ def test_reader_blocks_equal_plain(lib, tmp_path, monkeypatch):
         assert isinstance(rd._fh._fh, inflate.GzipReader)
     resume = want[3][1]
     assert _blocks(gz, start_offset=resume) == _blocks(plain, start_offset=resume)
+
+
+def test_reader_blocks_equal_plain_parallel(lib, tmp_path, monkeypatch):
+    """As above with the parallel reader (engaged as a large file on enough
+    cores engages it): the same blocks, from the start and from a resume
+    offset, counted by the stage timers."""
+    monkeypatch.setattr(fastq, "_CHUNK", 40_000)
+    monkeypatch.setattr(inflate, "_workers", lambda path: 3)
+    monkeypatch.setattr(inflate, "CHUNK_BYTES", 4096)
+    text = _generator_member(reads=4000)[1]
+    data = _member(text, 1)  # one stream: chunks with markers to resolve
+    plain = _put(tmp_path, text, "r.fq")
+    gz = _put(tmp_path, data, "r.fq.gz")
+    want = _blocks(plain)
+    t = StageTimers()
+    assert _blocks(gz, timers=t) == want
+    with FastqReader(gz, batch_size=500) as rd:
+        assert rd._fh._fh.parallel
+    resume = want[3][1]
+    assert _blocks(gz, start_offset=resume) == _blocks(plain, start_offset=resume)
+    assert t.counts["inflate-native-bytes"] == len(text)
+    assert set(t.counts) == {"inflate-native-bytes", *inflate.COUNTS}
+    assert t.counts["inflate-chunks"] > 0 and t.counts["inflate-markers"] > 0
+    assert t.counts["inflate-restarts"] == 0
 
 
 def test_counts_native_bytes(lib, tmp_path):
@@ -468,13 +689,18 @@ extern "C" {
 void* hpgq_gz_open(const char*);
 int64_t hpgq_gz_read(void*, uint8_t*, int64_t);
 void hpgq_gz_close(void*);
+void* hpgq_pgz_open(const char*, int, int64_t);
+int64_t hpgq_pgz_read(void*, uint8_t*, int64_t);
+void hpgq_pgz_close(void*);
 uint32_t hpgq_crc32(uint32_t, const uint8_t*, int64_t);
 }
 
 // argv: corpus (records of a little-endian u32 length and the bytes), a
-// scratch path.  Prints, a line per record: the error class (0: none),
-// the bytes read and their CRC-32.
+// scratch path, and "parallel" for the parallel reader (3 workers, 4 KiB
+// chunks).  Prints, a line per record: the error class (0: none), the
+// bytes read and their CRC-32.
 int main(int argc, char** argv) {
+    const bool par = argc > 3;
     FILE* f = fopen(argv[1], "rb");
     const int64_t sizes[5] = {333, 1, 4099, 65536, 1 << 20};
     std::vector<uint8_t> rec;
@@ -486,13 +712,14 @@ int main(int argc, char** argv) {
         FILE* g = fopen(argv[2], "wb");
         if (n) fwrite(rec.data(), 1, n, g);
         fclose(g);
-        void* h = hpgq_gz_open(argv[2]);
+        void* h = par ? hpgq_pgz_open(argv[2], 3, 4096) : hpgq_gz_open(argv[2]);
         if (!h) return 3;
         int64_t total = 0, k, cls = 0;
         uint32_t crc = 0;
         for (int i = 0;; ++i) {
             std::vector<uint8_t> out(sizes[i % 5]);  // exact: ASan sees overruns
-            k = hpgq_gz_read(h, out.data(), sizes[i % 5]);
+            k = par ? hpgq_pgz_read(h, out.data(), sizes[i % 5])
+                    : hpgq_gz_read(h, out.data(), sizes[i % 5]);
             if (k <= 0) {
                 cls = -k;
                 break;
@@ -500,7 +727,10 @@ int main(int argc, char** argv) {
             crc = hpgq_crc32(crc, out.data(), k);
             total += k;
         }
-        hpgq_gz_close(h);
+        if (par)
+            hpgq_pgz_close(h);
+        else
+            hpgq_gz_close(h);
         printf("%lld %lld %u\n", (long long)cls, (long long)total, crc);
     }
     printf("sanitize-ok\n");
@@ -514,13 +744,18 @@ _CLASSES = {0: None, 1: EOFError, 2: gzip.BadGzipFile, 3: zlib.error}
 @pytest.mark.skipif(not os.environ.get("HPGQ_SANITIZE"),
                     reason="set HPGQ_SANITIZE=1 to run the ASan/UBSan "
                            "native-inflate check")
+@pytest.mark.parametrize("entry", READERS)
 @pytest.mark.parametrize("arch", ["native", "portable"])
-def test_asan_ubsan_inflate(tmp_path, arch):
+def test_asan_ubsan_inflate(tmp_path, arch, entry):
     """Every input above and 3000 mutated members through an ASan/UBSan
-    build (PCLMULQDQ CRC with -march=native, the table CRC without): no
+    build (PCLMULQDQ CRC with -march=native, the table CRC without), by
+    the one-thread reader or the parallel one on three workers: no
     sanitizer report, and gzip's class and text on each."""
     rng = random.Random(11)
     corpus = [d for d, _ in _valid_inputs().values()] + list(_error_inputs().values())
+    if entry == "parallel":
+        corpus += [_member(_big_text()[:1 << 20], 1), _pigz(_big_text()[:1 << 20]),
+                   _member(_raw(_text()) * 2, 0)] + list(_later_chunk_errors().values())
     bases = [_member(_text()[:20_000], lv) for lv in (0, 1, 6, 9)] \
         + [_member(RUNS[:20_000], 1), _member(RANDOM[:5000], 6)]
     for _ in range(3000):
@@ -539,9 +774,11 @@ def test_asan_ubsan_inflate(tmp_path, arch):
     flags = ["-march=native"] if arch == "native" else []
     subprocess.run(["g++", "-O1", "-g", "-std=c++17", *flags,
                     "-fsanitize=address,undefined", "-fno-sanitize-recover=all",
-                    "-fno-omit-frame-pointer", src, str(main_cpp), "-o", exe],
+                    "-fno-omit-frame-pointer", src, str(main_cpp), "-o", exe,
+                    "-pthread"],
                    check=True, capture_output=True, timeout=300)
-    r = subprocess.run([exe, str(tmp_path / "corpus"), str(tmp_path / "one.gz")],
+    r = subprocess.run([exe, str(tmp_path / "corpus"), str(tmp_path / "one.gz")]
+                       + (["parallel"] if entry == "parallel" else []),
                        capture_output=True, timeout=1200,
                        env={**os.environ, "ASAN_OPTIONS": "detect_leaks=1"})
     assert r.returncode == 0, r.stderr.decode()[-4000:]
