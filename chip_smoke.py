@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the hpgq_torch port on one CUDA card.
 
-    python3 chip_smoke.py            # phases 1-5 and 7-16 (one NVIDIA GPU)
+    python3 chip_smoke.py            # phases 1-5 and 7-15 (one NVIDIA GPU)
     python3 chip_smoke.py --phases 1,2,3
 
 Phases, each printing its own lines:
@@ -28,13 +28,10 @@ Phases, each printing its own lines:
    against ``hpgq_torch.oracle``, a plain numpy reference computed from
    the generated reads themselves (every integer counter exact,
    ``acc_quality`` to 1e-3); every batch on the 2u tier must go to K1's
-   2u entry, none decoded on the card; then reads/s of three warm
-   passes.
+   2u entry, none decoded on the card.
 5. The other wire tiers (2c, 2q, 6-bit, 7-bit, plain) on 200k reads of
    60-150 bp, each held against the reference, and one ``kmers=True`` run
    (K1 + the k-mer ride-along, k-mer tables exact).
-6. Only when asked for: ``hpgq_torch.breakdown`` over the phase-4 corpus
-   (end-to-end arms in turns, each stage alone, the device's busy share).
 7. K2 against its plain twin on CUDA tensors, from lcap 4224 to 66048,
    ragged, empty, all-invalid and any-byte-code batches, one to seven
    reads with lengths on and off the 512-column tile edges, a width that
@@ -55,8 +52,7 @@ Phases, each printing its own lines:
    with ``kmers=True``, with a NanoFilt-style filter and with a mean
    quality screen over the [D8] window 500-900 (``--start-quality-nt`` /
    ``--end-quality-nt``), each held against the reference (k-mer tables
-   too), with K2 launches required; then reads/s and bases/s of three warm
-   passes.
+   too), with K2 launches required.
 9. Paired stats: 1,000,000 pairs of 2 x 100 bp (mate 1 is phase 4's
    corpus, mate 2 the same recipe with seed 8); ``hpgq_torch.stats(m1,
    m2)`` with the bench filter and with none, both mates held against
@@ -65,12 +61,12 @@ Phases, each printing its own lines:
    the filter decoded for the pair verdict and sent to K1's plain entry,
    without it sent to the 2u entry.  Then 2,008 pairs of long reads with
    the NanoFilt-style filter: every mate batch launches K2, both mates
-   equal to the reference.  Then pairs/s of three warm passes.
+   equal to the reference.
 10. Filter: ``hpgq_torch.filter_reads`` single-end over phase 4's corpus
     (2c tier), paired over phase 9's pairs, and with the NanoFilt-style
     thresholds over phase 8's long reads (qn8 tier); every output file
     byte-equal to the records ``oracle.reference_verdicts`` selects, every
-    verdict batch on the card; then reads/s (pairs/s) of three warm passes.
+    verdict batch on the card.
 
 11. Edit and prepro: ``hpgq_torch.edit`` over phase 4's corpus with
     ``bench.py``'s ``EDIT_CRIT`` (trim only) and with the golden settings
@@ -82,15 +78,13 @@ Phases, each printing its own lines:
     counts equal, every batch on the card.  Then ``stats`` over the
     trim-only and the long-read ``edit.fq`` (the ``bench.py:530-551``
     chain), held against ``reference_stats`` over the kept trimmed reads:
-    the first must launch K1, the second K2.  Reads/s of three warm passes
-    of the chain, of paired edit and of long-read edit.
+    the first must launch K1, the second K2.
 12. CGR: ``hpgq_torch.cgr`` at k=7 with ``write_gs`` over phase 4's
     corpus and over phase 9's pairs (one signature): the tables, the word
     count and the PGM and ``.gs`` bytes equal to ``oracle.reference_cgr``
     and what ``report.pgm`` writes from it; a second run against its own
     ``.gs`` gives a zero diff.  ``cgr_batch_tables`` on the card at k=10
-    and on the poly-A batch whose quality cell passes 2^31, exact.  Reads/s
-    of three warm passes, and the device ms per batch of one profiled pass.
+    and on the poly-A batch whose quality cell passes 2^31, exact.
 13. ``--sharded``: ``hpgq_torch.stats(..., sharded=True)`` with the bench
     filter over phase 4's corpus at world size 1: in this process with no
     launcher (no process group), in one subprocess with torch's launcher
@@ -127,18 +121,15 @@ Phases, each printing its own lines:
     10,000, ``HPGQ_COALESCE=131072``: counters equal to the reference, fewer
     K1 launches than reader blocks); ``stats`` with and without
     ``--profile-dir`` (counters and report bytes equal, the trace holds
-    K1's kernel) and ``filter`` with it.  Then one warm pass each of gzip
-    and BGZF ``stats`` and of ``cgr`` over gzip.
+    K1's kernel) and ``filter`` with it.
 15. Fuzz: 12 rounds of ``tools/fuzz_torch.py`` (seed 4, every command
     among them, sharded, paired and interrupted rounds too) on the card,
     each held against the reference.
-16. A/B: every study of ``tools/ab_torch.py`` (``engine_cfg``,
-    ``coalesce``, ``wire2c``, ``wire6``, ``writer``, ``fixed``,
-    ``paired``) at 100,000 reads and two rounds, corpora of its own (the
-    1M-read files of phases 4 and 9 are ten times the size): every pass of
-    every arm held against the bench's single-CPU oracle, the ``wire2c``
-    arms on 2q against 2u batches and the ``wire6`` arms on 7-bit against
-    6-bit ones; one summary line per study.
+
+There is no phase 6 or 16: ``benchmark/`` measures the port's speed end
+to end, and ``tools/ab_torch.py`` runs the A/B studies.  Phases 3 and 7
+time each kernel alone for the kernels line; phase 13 prints the rates of
+its checked warm passes beside the start-up split.
 
 Phases 9-14 reuse the corpora of phases 4 and 8, and write them when
 those phases are not selected; each phase prints its seconds (PERF.md
@@ -151,8 +142,7 @@ kernels line gives K1's plain and 2u entries and K2 with their launches
 on the paths that drive them (phase 4, 9's unfiltered run and 13's
 sharded stats, 14's gzip, BGZF and profiled stats for the 2u entry;
 phases 5, 9's filtered run, 11's stats over the trimmed short reads, 13's
-sharded paired stats and 14's coalesced run for the plain entry; phase
-16's studies for both K1 entries; phase 8,
+sharded paired stats and 14's coalesced run for the plain entry; phase 8,
 9's long pairs, 11's stats over the trimmed long reads and 13's sharded
 long-read stats for K2; phase 15's fuzz rounds for either K1 entry).
 
@@ -170,6 +160,7 @@ import sys
 import tempfile
 import time
 import traceback
+from unittest import mock
 
 import numpy as np
 
@@ -329,7 +320,7 @@ def time_kernel(phase, label, kernel_fn, plain_fn, prepare, name, nbytes,
     """The kernel against its plain twin on the same inputs: CUDA events in
     turns (plain, kernel, kernel, plain) around the wrapper and the twin,
     then the kernel's device time alone, by two timers: the profiler's
-    kernel records (:func:`kernel_device_ms`) and CUDA events around the
+    kernel records (:func:`kernel_profiler_ms`) and CUDA events around the
     raw launches of ``prepare()`` (:func:`kernel_event_ms`).  The row
     takes the profiler's time, else the events'.  Prints ms, bytes, GB/s,
     the bound and its share.  The wrapper's time goes in ``wrapper_ms``
@@ -343,7 +334,7 @@ def time_kernel(phase, label, kernel_fn, plain_fn, prepare, name, nbytes,
         else:
             t = cuda_time_ms(plain_fn)
             ms_plain = t if ms_plain is None else min(ms_plain, t)
-    prof_ms = kernel_device_ms(kernel_fn, launches_per_call, name=name)
+    prof_ms = kernel_profiler_ms(kernel_fn, launches_per_call, name=name)
     try:
         ev_ms = kernel_event_ms(prepare)
         events = "%.4f" % ev_ms
@@ -529,7 +520,7 @@ def phase_kernel(dev):
     return out
 
 
-def kernel_device_ms(fn, launches, iters=20, name="stats_k1_kernel"):
+def kernel_profiler_ms(fn, launches, iters=20, name="stats_k1_kernel"):
     """Device time per call of ``fn`` spent in the kernels whose names
     contain ``name`` (profiler; K2 is two launches per call).  None when
     the trace does not hold every one of the ``launches`` per call."""
@@ -591,10 +582,10 @@ def bench_corpus(tmp, seed=7):
         qual_bins=(2, 12, 23, 37)))
 
 
-def phase_end_to_end(tmp, smi):
+def phase_end_to_end(tmp):
     import torch
 
-    from hpgq_torch.kernels import stats_cuda, step
+    from hpgq_torch.kernels import step
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
     path, records = bench_corpus(tmp)
@@ -629,17 +620,6 @@ def phase_end_to_end(tmp, smi):
         "counter exact, acc_quality rel diff %.3g" % (
             got.num_passed, got.num_failed,
             abs(got.acc_quality - want.acc_quality) / want.acc_quality))
-
-    times = []
-    for _ in range(3):  # warm passes: the spread is part of the result
-        t0 = time.perf_counter()
-        warm = run_port(path, out, BENCH_FILTER)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    n = warm.num_passed + warm.num_failed
-    say("e2e", "warm passes: %d reads in %s s; best %.0f reads/s, median "
-        "%.0f reads/s, on %s" % (n, ", ".join("%.3f" % t for t in times),
-                                 n / min(times), n / sorted(times)[1], smi))
     return launches["K1 2u"], got.num_passed
 
 
@@ -647,7 +627,6 @@ def phase_tiers(tmp):
     """The other wire tiers and a k-mer run; returns K1 plain-entry
     launches."""
     from gen import make_fastq
-    from hpgq_torch.breakdown import environ
     from hpgq_torch.kernels import step
     from hpgq_torch.oracle import assert_counters_equal, reference_stats
 
@@ -672,7 +651,7 @@ def phase_tiers(tmp):
     reset_counts()
     for tier, path, env in runs:
         step.WIRE_BATCHES.clear()
-        with environ(env):
+        with mock.patch.dict(os.environ, env):
             got = run_port(path, tempfile.mkdtemp(dir=tmp), BENCH_FILTER)
         tiers = dict(step.WIRE_BATCHES)
         check(tiers.get(tier, 0) > 0, "tier %s carried no batch (%s)"
@@ -692,15 +671,6 @@ def phase_tiers(tmp):
         "reference, k-mer tables too (%d k-mers counted)"
         % (launch_counts()["K1"] - k1, int(got.kmer_counts.sum())))
     return launch_counts()["K1"]
-
-
-def phase_breakdown(tmp, smi):
-    """Opt-in: hpgq_torch.breakdown over the bench corpus."""
-    from hpgq_torch import breakdown
-
-    path, _ = bench_corpus(tmp)
-    say("breakdown", "on %s" % smi)
-    breakdown.main([path])
 
 
 # ---------------------------------------------------------------- phase 7
@@ -969,9 +939,7 @@ def long_read_runs(path, records, outdir, device):
     return out
 
 
-def phase_long_reads(tmp, smi):
-    import torch
-
+def phase_long_reads(tmp):
     path, records = long_corpus(tmp)
     nbases = sum(len(r[1]) for r in records)
     say("long", "%d reads, %d bases (longest %d)"
@@ -989,35 +957,7 @@ def phase_long_reads(tmp, smi):
                 if run == "kmers" else ""))
     say("long", "the three runs and their references took %.1f s"
         % (time.perf_counter() - t0))
-    launches = runs["filter"][2]
-
-    from hpgq_torch.breakdown import _device_ms, _fmt_busy
-
-    times = []
-    for _ in range(3):  # warm passes of the filtered run
-        t0 = time.perf_counter()
-        run_port(path, tempfile.mkdtemp(dir=tmp), LONG_FILTER)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    n = len(records)
-    say("long", "warm filtered passes: %d reads, %d bases in %s s; best "
-        "%.0f reads/s (%.4g bases/s), median %.0f reads/s (%.4g bases/s), "
-        "on %s" % (n, nbases, ", ".join("%.3f" % t for t in times),
-                   n / min(times), nbases / min(times), n / sorted(times)[1],
-                   nbases / sorted(times)[1], smi))
-    for label, kw in (("no filter, no report", dict(report=False)),
-                      ("kmers=True, no report", dict(kmers=True,
-                                                     report=False)),
-                      ("kmers=True", dict(kmers=True))):
-        t0 = time.perf_counter()
-        run_port(path, tempfile.mkdtemp(dir=tmp), kw)
-        torch.cuda.synchronize()
-        say("long", "one warm pass, %s: %.3f s"
-            % (label, time.perf_counter() - t0))
-    busy = _device_ms(lambda: run_port(path, tempfile.mkdtemp(dir=tmp),
-                                       LONG_FILTER), torch.device("cuda", 0))
-    say("long", "one profiled filtered pass: device %s" % _fmt_busy(busy))
-    return launches
+    return runs["filter"][2]
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1088,32 +1028,7 @@ def paired_long_run(pair1, pair2, outdir, device):
     return got, n, tiers
 
 
-def warm_passes(fn, n, unit, smi, label, phase):
-    """Three warm passes of ``fn``, printed as ``unit``/s, best and
-    median, then one profiled pass: the card's busy share.  Returns that
-    pass's ``breakdown._device_ms`` (None where the profiler saw no
-    device)."""
-    import torch
-
-    from hpgq_torch.breakdown import _device_ms, _fmt_busy
-
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    say(phase, "%s, warm passes: %d %s in %s s; best %.0f %s/s, median "
-        "%.0f %s/s, on %s" % (label, n, unit, ", ".join("%.3f" % t
-                                                       for t in times),
-                              n / min(times), unit, n / sorted(times)[1],
-                              unit, smi))
-    busy = _device_ms(fn, torch.device("cuda", 0))
-    say(phase, "%s, one profiled pass: device %s" % (label, _fmt_busy(busy)))
-    return busy
-
-
-def phase_paired(tmp, smi):
+def phase_paired(tmp):
     """Paired stats over 1M pairs of 2 x 100 bp, and over 2,008 pairs of
     long reads; returns the launches of K1's plain entry (the filtered
     run: the pair verdict reads both mates decoded), of its 2u entry (the
@@ -1143,16 +1058,7 @@ def phase_paired(tmp, smi):
         "(%d pairs counted, %d passed, %d failed)"
         % (time.perf_counter() - t0, n, tiers, c1.num_reads, c1.num_passed,
            c1.num_failed))
-    warm_passes(lambda: run_port_paired(m1, m2, tempfile.mkdtemp(dir=tmp)),
-                len(recs1), "pairs", smi, "bench filter", "paired")
     return runs["filter"][1]["K1"], runs["all"][1]["K1 2u"], n["K2"]
-
-
-def run_port_paired(m1, m2, outdir):
-    import hpgq_torch
-
-    return hpgq_torch.stats(m1, m2, outdir=outdir, device="cuda",
-                            **BENCH_FILTER)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1196,7 +1102,7 @@ def filter_runs(cases, outdir, device):
 LONG_FILTER_PASSED = 5744  # what phase 8's filtered stats counts on this corpus
 
 
-def phase_filter(tmp, smi, se_passed=None):
+def phase_filter(tmp, se_passed=None):
     """Single-end filter of the phase-4 corpus, paired filter of phase 9's
     pairs, long-read filter of phase 8's corpus."""
     m1, recs1 = bench_corpus(tmp)
@@ -1226,14 +1132,6 @@ def phase_filter(tmp, smi, se_passed=None):
           % (runs["long reads"][0]["num_passed"], LONG_FILTER_PASSED))
     say("filter", "three runs and their references took %.1f s"
         % (time.perf_counter() - t0))
-    for label, paths, recs, kw in cases:
-        def one(paths=paths, kw=kw):
-            import hpgq_torch
-
-            hpgq_torch.filter_reads(*paths, outdir=tempfile.mkdtemp(dir=tmp),
-                                    device="cuda", **kw)
-        warm_passes(one, len(recs[0]), "pairs" if len(paths) == 2
-                    else "reads", smi, label, "filter")
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1357,11 +1255,9 @@ def edit_then_stats(res, records, trims, sel, outdir, device):
     return got, launch_counts()
 
 
-def phase_edit(tmp, smi):
+def phase_edit(tmp):
     """Edit and prepro on the card; returns the launches of K1's plain
     entry and of K2 by the stats passes over ``edit.fq``."""
-    import hpgq_torch
-
     m1, recs1 = bench_corpus(tmp)
     m2, recs2 = bench_corpus(tmp, seed=8)
     lpath, lrecs = long_corpus(tmp)
@@ -1395,21 +1291,6 @@ def phase_edit(tmp, smi):
         say("edit", "stats over the %s edit.fq: launches %s; == reference "
             "(%d reads, lengths %d-%d)" % (label, launches, got.num_reads,
                                            got.min_length, got.max_length))
-
-    def chain():
-        od = tempfile.mkdtemp(dir=tmp)
-        res = hpgq_torch.edit(m1, outdir=od, device="cuda", **EDIT_TRIM)
-        hpgq_torch.stats(res["edit_filename"], outdir=od, device="cuda")
-
-    warm_passes(chain, len(recs1), "reads", smi, "edit -> stats chain "
-                "(bench config #3)", "edit")
-    for label, paths, recs, kw in (
-            ("paired edit, golden settings", (m1, m2), recs1, EDIT_GOLDEN),
-            ("long-read edit", (lpath,), lrecs, LONG_EDIT)):
-        warm_passes(lambda paths=paths, kw=kw: hpgq_torch.edit(
-            *paths, outdir=tempfile.mkdtemp(dir=tmp), device="cuda", **kw),
-            len(recs), "pairs" if len(paths) == 2 else "reads", smi, label,
-            "edit")
     return n["K1"], n["K2"]
 
 
@@ -1505,7 +1386,7 @@ def cgr_direct_checks(device, n_overflow=3000):
     return out
 
 
-def phase_cgr(tmp, smi):
+def phase_cgr(tmp):
     import hpgq_torch
     from hpgq_torch.pipeline import cgr_run
 
@@ -1523,8 +1404,6 @@ def phase_cgr(tmp, smi):
         batches = dict(cgr_run.BATCHES)
         check(batches and all(dev == "cuda" for dev, _ in batches),
               "%s: a CGR batch ran off the card (%s)" % (label, batches))
-        if label == "single-end":
-            nbatches = sum(batches.values())
         words = cgr_check(res, recs, 7, tmp, "cgr " + label)
         say("cgr", "%s k=7: cold pass %.3f s, batches %s; tables, word "
             "count (%d), PGMs and .gs == reference"
@@ -1535,15 +1414,6 @@ def phase_cgr(tmp, smi):
     for label, cell in cgr_direct_checks("cuda").items():
         say("cgr", "cgr_batch_tables %s on the card == reference (largest "
             "quality cell %d)" % (label, cell))
-
-    def one():
-        hpgq_torch.cgr(m1, outdir=tempfile.mkdtemp(dir=tmp), k=7,
-                       device="cuda")
-
-    busy = warm_passes(one, len(recs1), "reads", smi, "cgr k=7", "cgr")
-    if busy is not None:
-        say("cgr", "device time per batch of the profiled pass (kernels and "
-            "copies, %d batches): %.3f ms" % (nbatches, busy[0] / nbatches))
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2308,7 +2178,6 @@ def coalesced_run(path, records, outdir, device):
     ``HPGQ_COALESCE=131072``, held against the reference.  Returns (reader
     blocks, batches dispatched, launches)."""
     from hpgq_torch.api import filter_criteria
-    from hpgq_torch.breakdown import environ
     from hpgq_torch.io.fastq import FastqReader
     from hpgq_torch.kernels import step
     from hpgq_torch.options import StatsOptions
@@ -2318,7 +2187,7 @@ def coalesced_run(path, records, outdir, device):
     with FastqReader(path, batch_size=10000) as rd:
         blocks = sum(1 for _ in rd)
     reset_counts()
-    with environ({"HPGQ_COALESCE": "131072"}):
+    with mock.patch.dict(os.environ, {"HPGQ_COALESCE": "131072"}):
         got = run_stats(StatsOptions(
             in_filename=path, out_dirname=outdir,
             quality_encoding_name="phred33", batch_size=10000,
@@ -2475,12 +2344,8 @@ def input_runs(path, records, tmp, device, n_coalesced=100_000):
     return out
 
 
-def phase_inputs(tmp, smi):
+def phase_inputs(tmp):
     """Phase 14; returns the launches of K1's plain and 2u entries."""
-    import torch
-
-    import hpgq_torch
-
     path, records = bench_corpus(tmp)
     t0 = time.perf_counter()
     runs = input_runs(path, records, tmp, "cuda")
@@ -2505,20 +2370,6 @@ def phase_inputs(tmp, smi):
         % (blocks, k1, ev["all"], ev["kernel"], ev["k1"],
            runs["stats, profiled"][0], runs["stats"][0]))
     say("inputs", "checks took %.1f s" % (time.perf_counter() - t0))
-    gz, bgz = compressed_corpora(path)
-    for label, fn in (
-            ("stats + bench filter, gzip", lambda od: run_port(
-                gz, od, BENCH_FILTER)),
-            ("stats + bench filter, BGZF", lambda od: run_port(
-                bgz, od, BENCH_FILTER)),
-            ("cgr k=7 over gzip", lambda od: hpgq_torch.cgr(
-                gz, outdir=od, k=7, device="cuda"))):
-        t0 = time.perf_counter()
-        fn(tempfile.mkdtemp(dir=tmp))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        say("inputs", "%s, one warm pass: %.0f reads/s (%.3f s), on %s"
-            % (label, len(records) / dt, dt, smi))
 
     def total(kernel):
         return sum(r[1][kernel] for r in runs.values())
@@ -2574,85 +2425,15 @@ def phase_fuzz():
     return k1, k1u
 
 
-# ---------------------------------------------------------------- phase 16
-
-AB_READS, AB_ROUNDS = 100_000, 2
-# the tiers of the wire arms, (off, on): 2u needs the 2c machinery, so
-# HPGQ_WIRE2C=0 sends uniform-length reads to 2q
-WIRE_ARMS = {"wire2c": ("stats 2q", "stats 2u"),
-             "wire6": ("stats 7bit", "stats 6bit")}
-
-
-def ab_runs(device, tmp, reads=AB_READS, rounds=AB_ROUNDS, emit=None):
-    """Every study of ``tools/ab_torch.py`` on ``device`` at ``reads``
-    reads, corpora under ``tmp/ab``, every pass held against the oracle by
-    the tool; the wire arms must ride the tiers they switch between.
-    Returns (the summary lines, the launches of every pass)."""
-    import torch
-
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import ab_torch
-    import bench_torch
-
-    saved = bench_torch.BENCH_DIR
-    bench_torch.BENCH_DIR = os.path.join(tmp, "ab")
-    try:
-        summaries, launches = ab_torch.run("all", torch.device(device),
-                                           rounds, reads, emit=emit)
-    except bench_torch.BenchMismatch as e:
-        raise SmokeFailure("tools/ab_torch.py: %s" % e)
-    finally:
-        bench_torch.BENCH_DIR = saved
-    check(len(summaries) == 8, "ab_torch gave %d summaries" % len(summaries))
-    for s in summaries:
-        if s["summary"] in WIRE_ARMS:
-            got = tuple(tuple(s["arms"][a]["tiers"]) for a in ("off", "on"))
-            check(got == tuple((t,) for t in WIRE_ARMS[s["summary"]]),
-                  "%s: the arms rode the tiers %s" % (s["summary"], got))
-    return summaries, launches
-
-
-def _ab_line(obj):
-    """The summary lines of ``ab_torch``, shortened to what PERF.md keeps."""
-    if "summary" not in obj:
-        return
-    if "arms" in obj:
-        say("ab", "%s %s: %s" % (obj["summary"], obj["command"], "; ".join(
-            "%s median %.0f reads/s (%.0f-%.0f), ratio %.4f, tiers %s%s"
-            % (a, v["median_reads_per_sec"], v["spread"][0], v["spread"][1],
-               v["median_ratio"], v["tiers"],
-               ", dispatches %s" % v["dispatches"]
-               * (obj["summary"] == "coalesce"))
-            for a, v in obj["arms"].items())))
-    else:
-        say("ab", json.dumps(obj))
-
-
-def phase_ab(tmp, smi):
-    """Phase 16; returns the launches of K1's plain and 2u entries."""
-    reset_counts()
-    t0 = time.perf_counter()
-    _, launches = ab_runs("cuda", tmp, emit=_ab_line)
-    n = launch_counts()
-    check(n == {k: launches.get(k, 0) for k in n},
-          "the launch counts %s, the tool's passes %s" % (n, launches))
-    check(n["K1"] > 0 and n["K1 2u"] > 0, "the ab_torch studies launched "
-          "K1 %s" % n)
-    say("ab", "every study of tools/ab_torch.py at %d reads, %d rounds, "
-        "every pass == oracle, in %.1f s on %s; launches %s"
-        % (AB_READS, AB_ROUNDS, time.perf_counter() - t0, smi, n))
-    return n["K1"], n["K1 2u"]
-
-
 # ---------------------------------------------------------------- main
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default 1-5 and "
-                         "7-16; 6, the stage breakdown, runs only when "
-                         "asked for; the card and the build always run)")
+                         "7-15, every phase; the card and the build always "
+                         "run)")
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks of phase 13's multi-rank runs (default: one "
                          "per card, or two sharing the card on one card); "
@@ -2748,31 +2529,31 @@ def main(argv=None):
             k2.update(phase_k2(dev))
         if 4 in phases:
             clock(4)
-            n, se_passed = phase_end_to_end(tmp, smi)
+            n, se_passed = phase_end_to_end(tmp)
             k1u["launches"] += n
         if 5 in phases:
             clock(5)
             k1["launches"] += phase_tiers(tmp)
         if 8 in phases:
             clock(8)
-            k2["launches"] += phase_long_reads(tmp, smi)
+            k2["launches"] += phase_long_reads(tmp)
         if 9 in phases:
             clock(9)
-            n_plain, n_2u, n_k2 = phase_paired(tmp, smi)
+            n_plain, n_2u, n_k2 = phase_paired(tmp)
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
             k2["launches"] += n_k2
         if 10 in phases:
             clock(10)
-            phase_filter(tmp, smi, se_passed)
+            phase_filter(tmp, se_passed)
         if 11 in phases:
             clock(11)
-            n_plain, n_k2 = phase_edit(tmp, smi)
+            n_plain, n_k2 = phase_edit(tmp)
             k1["launches"] += n_plain
             k2["launches"] += n_k2
         if 12 in phases:
             clock(12)
-            phase_cgr(tmp, smi)
+            phase_cgr(tmp)
         if 13 in phases:
             clock(13)
             n_plain, n_2u, n_k2 = phase_sharded(tmp, smi, args.ranks)
@@ -2781,7 +2562,7 @@ def main(argv=None):
             k2["launches"] += n_k2
         if 14 in phases:
             clock(14)
-            n_plain, n_2u = phase_inputs(tmp, smi)
+            n_plain, n_2u = phase_inputs(tmp)
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
         if 15 in phases:
@@ -2789,14 +2570,6 @@ def main(argv=None):
             n_plain, n_2u = phase_fuzz()
             k1["launches"] += n_plain
             k1u["launches"] += n_2u
-        if 16 in phases:
-            clock(16)
-            n_plain, n_2u = phase_ab(tmp, smi)
-            k1["launches"] += n_plain
-            k1u["launches"] += n_2u
-        if 6 in phases:
-            clock(6)
-            phase_breakdown(tmp, smi)
         clock(None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

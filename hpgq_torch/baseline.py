@@ -1,10 +1,10 @@
-"""The single-CPU baseline that ``bench_torch.py`` divides by.
+"""The single-CPU oracle of ``tools/ab_torch.py``.
 
 The port's own copy (it imports nothing of ``hpgq``) of exactly the
 functions ``bench.py``'s oracle passes run: ``block_stats``,
 ``block_verdicts`` and ``block_trims`` of ``hpgq/oracle/baseline.py`` (with
 the helpers they call) and ``fill_tables_loop`` of ``hpgq/oracle/cgr.py``,
-kept equal to them (``tests/test_torch_bench.py``).  They run on packed
+kept equal to them (``tests/test_torch_baseline.py``).  They run on packed
 ``[N, L]`` batches (``hpgq_torch.io.packer.pack_block``): vectorised numpy
 on one core for stats, the filter verdict and the trims, and the reference's
 per-nucleotide loop for the chaos game.  Decision tags [D1]-[D8] are those

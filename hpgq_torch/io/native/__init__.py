@@ -10,6 +10,10 @@ The shared library is compiled from ``packer.cpp`` on first use (g++ -O3
 callers fall back to the pure-numpy packer transparently
 (``hpgq_torch.io.packer.pack_block``).  Bindings use ctypes — this toolchain has
 no pybind11 (see repo environment notes).
+
+:func:`load` builds and loads every g++ library of the port, this packer,
+``inflate.cpp`` (:mod:`.inflate`) and ``report/rows.cpp``
+(:mod:`hpgq_torch.report.rows`), all into ``_build/`` here.
 """
 
 from __future__ import annotations
@@ -28,18 +32,17 @@ log = logging.getLogger(__name__)
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "packer.cpp")
 _BUILD = os.path.join(_HERE, "_build")  # listed in .gitignore
-_SO = os.path.join(_BUILD, "_packer.so")
 
-_lock = threading.Lock()
-_lib = None
-_tried = False
+_libs: dict = {}  # .so path -> the loaded library, or None once it failed
+_locks: dict = {}  # .so path -> the lock its first load runs under
+_locks_lock = threading.Lock()
 
 
-def _build(src: str = _SRC, so: str = _SO) -> str:
-    """Compile ``src`` (packer.cpp) -> ``so`` (_packer.so) (atomic rename,
-    race-safe); ``inflate.cpp`` builds with the same flags."""
-    os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+def _build(src: str, so: str) -> str:
+    """Compile ``src`` -> ``so`` (atomic rename, race-safe); the port's
+    three g++ libraries build with these flags."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
     os.close(fd)
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
@@ -61,57 +64,66 @@ def _build(src: str = _SRC, so: str = _SO) -> str:
     return so
 
 
-def get_lib():
-    """The loaded native library, or None if unavailable."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("HPGQ_NO_NATIVE"):
-            return None
-        def _load():
-            lib = ctypes.CDLL(_SO)
-            lib.hpgq_abi_version.restype = ctypes.c_int
-            return lib
+def _open(path: str, abi_symbol: str):
+    """(the library at ``path``, the ABI version it reports); its calls
+    keep ``errno`` for :func:`ctypes.get_errno`."""
+    lib = ctypes.CDLL(path, use_errno=True)
+    version = getattr(lib, abi_symbol)
+    version.restype = ctypes.c_int
+    return lib, version()
 
-        try:
-            if not os.path.exists(_SRC):
-                # prebuilt .so shipped without source: usable iff the ABI
-                # matches (the rebuild path below is unavailable)
-                if not os.path.exists(_SO):
-                    raise FileNotFoundError(_SRC)
-                lib = _load()
-                if lib.hpgq_abi_version() != _ABI:
-                    raise RuntimeError(
-                        "prebuilt native packer ABI %d != expected %d and "
-                        "packer.cpp is absent" % (lib.hpgq_abi_version(), _ABI)
-                    )
-                _bind(lib)
-                _lib = lib
-                return _lib
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _build()
-            lib = _load()
-            if lib.hpgq_abi_version() != _ABI:
-                # a stale .so can out-date the mtime check (copied build
-                # dirs, timestamp-preserving extraction): rebuild once, and
-                # fall back to numpy rather than crash if still mismatched
-                _build()
-                lib = _load()
-                if lib.hpgq_abi_version() != _ABI:
-                    raise RuntimeError(
-                        "native packer ABI %d != expected %d"
-                        % (lib.hpgq_abi_version(), _ABI)
-                    )
-            _bind(lib)
-        except Exception as e:  # no compiler / load / symbol failure
-            log.info("native packer unavailable (%s); using numpy packer", e)
-            return None
-        _lib = lib
-        return _lib
+
+def _load(src, so, abi_symbol, abi, bind):
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+        _build(src, so)
+    lib, got = _open(so, abi_symbol)
+    if got != abi:
+        # a stale library the mtime check missed (copied build dirs,
+        # timestamp-preserving extraction): rebuild once.  dlopen hands
+        # back the library it already loaded under the same name, so the
+        # rebuilt file (a new inode) is opened under another spelling
+        _build(src, so)
+        lib, got = _open(os.path.join(os.path.dirname(so), ".",
+                                      os.path.basename(so)), abi_symbol)
+        if got != abi:
+            raise RuntimeError("ABI %d != expected %d" % (got, abi))
+    bind(lib)
+    return lib
+
+
+def load(src: str, name: str, abi_symbol: str, abi: int, bind, what: str,
+         fallback: str):
+    """The g++ library ``_build/<name>`` built from ``src``, or None;
+    decided once per library and process.
+
+    None under ``HPGQ_NO_NATIVE``.  Else the library is built where it is
+    missing or older than ``src``, loaded, held to ABI ``abi`` by its
+    ``abi_symbol()`` (a mismatch rebuilds once), and ``bind(lib)``
+    declares its functions.  On any failure (no compiler, a load, symbol
+    or ABI error) it logs at info that the native ``what`` is unavailable
+    and the caller uses ``fallback``, and gives None."""
+    so = os.path.join(_BUILD, name)
+    if so in _libs:
+        return _libs[so]
+    with _locks_lock:
+        lock = _locks.setdefault(so, threading.Lock())
+    with lock:
+        if so not in _libs:
+            lib = None
+            if not os.environ.get("HPGQ_NO_NATIVE"):
+                try:
+                    lib = _load(src, so, abi_symbol, abi, bind)
+                except Exception as e:  # no compiler / load / symbol failure
+                    log.info("native %s unavailable (%s); using %s",
+                             what, e, fallback)
+            _libs[so] = lib
+        return _libs[so]
+
+
+def get_lib():
+    """The loaded native packer, or None if unavailable."""
+    return load(_SRC, "_packer.so", "hpgq_abi_version", _ABI, _bind,
+                "packer", "numpy packer")
 
 
 _ABI = 8  # must match hpgq_abi_version() in packer.cpp

@@ -1,6 +1,7 @@
 """The port's gzip reader: ``inflate.cpp``, a DEFLATE decoder with gzip's
-framing and checks, written by hand (no zlib), built on first use with the
-packer's g++ flags into ``_build/_inflate.so`` and bound with ctypes.
+framing and checks, written by hand (no zlib), built on first use by
+:func:`hpgq_torch.io.native.load` into ``_build/_inflate.so`` and bound
+with ctypes.
 
 :func:`open_gzip` gives a :class:`GzipReader` over a plain (non-BGZF) gzip
 file, or None when the library cannot be built or loaded or
@@ -27,23 +28,15 @@ from __future__ import annotations
 import ctypes
 import gzip
 import io
-import logging
 import os
 import threading
 import zlib
 
-from . import _BUILD, _HERE, _build
+from . import load
 
-log = logging.getLogger(__name__)
-
-_SRC = os.path.join(_HERE, "inflate.cpp")
-_SO = os.path.join(_BUILD, "_inflate.so")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "inflate.cpp")
 _ABI = 2  # must match hpgq_inflate_abi_version() in inflate.cpp
 CHUNK_BYTES = 4 << 20  # compressed bytes of one chunk on the parallel path
-
-_lock = threading.Lock()
-_lib = None
-_tried = False
 
 # a bytes object of n bytes left uninitialized, for the decoder to fill
 # before anyone else sees it (the C API's documented way to build bytes);
@@ -55,11 +48,7 @@ _new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p,
 _ERRORS = {1: EOFError, 2: gzip.BadGzipFile, 3: zlib.error, 4: OSError}
 
 
-def _load():
-    lib = ctypes.CDLL(_SO, use_errno=True)
-    lib.hpgq_inflate_abi_version.restype = ctypes.c_int
-    if lib.hpgq_inflate_abi_version() != _ABI:
-        return None
+def _bind(lib):
     lib.hpgq_gz_open.restype = ctypes.c_void_p
     lib.hpgq_gz_open.argtypes = [ctypes.c_char_p]
     lib.hpgq_gz_read.restype = ctypes.c_int64
@@ -81,34 +70,12 @@ def _load():
                                     ctypes.POINTER(ctypes.c_int64)]
     lib.hpgq_pgz_close.restype = None
     lib.hpgq_pgz_close.argtypes = [ctypes.c_void_p]
-    return lib
 
 
 def get_lib():
     """The loaded decoder library, or None if unavailable."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("HPGQ_NO_NATIVE"):
-            return None
-        try:
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _build(_SRC, _SO)
-            lib = _load()
-            if lib is None:  # a stale library the mtime check missed
-                _build(_SRC, _SO)
-                lib = _load()
-            if lib is None:
-                raise RuntimeError("native inflate ABI != %d" % _ABI)
-        except Exception as e:  # no compiler / load / symbol failure
-            log.info("native inflate unavailable (%s); using gzip", e)
-            return None
-        _lib = lib
-        return _lib
+    return load(_SRC, "_inflate.so", "hpgq_inflate_abi_version", _ABI, _bind,
+                "inflate", "gzip")
 
 
 def open_gzip(path: str) -> "GzipReader | None":

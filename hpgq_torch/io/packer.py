@@ -679,9 +679,8 @@ def pack_block_wire(block, wire: str, max_len: int,
 def pack_block_bitwire(block, max_len: int, pad_reads_to: int = 0) -> np.ndarray:
     """Pack a RecordBlock straight into the bitpack wire buffer
     (uint8 ``[nrows, 3L/8 + 7L/8 + 8]``, ``max_len % 8 == 0``): 3-bit base
-    codes + 7-bit ASCII quals, ~31% fewer wire bytes than fused4 — the
-    preferred format when the host->device link is the pipeline bottleneck
-    (remote/tunneled TPU)."""
+    codes + 7-bit ASCII quals, ~31% fewer wire bytes than fused4, so fewer
+    bytes to pin and copy to the device."""
     assert int(max_len) % 8 == 0, max_len
     return _pack_wire_dispatch(block, max_len, pad_reads_to,
                                "pack_bitwire", wire_bitpack_np)

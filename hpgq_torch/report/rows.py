@@ -5,9 +5,9 @@ A format holds literal text and three conversions, each taking the next
 column: ``%i`` (integers), ``%c`` (integers, the byte of their low 8 bits,
 written as ``chr`` of it) and ``%0.2f`` (floats, as glibc's ``printf``
 prints them, :func:`hpgq_torch.utils.cfmt.fmt2f`).  :func:`write_rows`
-formats every row in one call of ``rows.cpp``, built on first use with the
-packer's g++ flags into ``io/native/_build/_rows.so`` and bound with
-ctypes; without the library (no compiler, ``HPGQ_NO_NATIVE``) or where its
+formats every row in one call of ``rows.cpp``, built on first use by
+:func:`hpgq_torch.io.native.load` into ``io/native/_build/_rows.so`` and
+bound with ctypes; without the library (no compiler, ``HPGQ_NO_NATIVE``) or where its
 text would not fit, Python formats the same text (:func:`format_rows_py`).
 The native text goes to the file's byte stream from a buffer kept per
 thread, with no string made of it, where the file's encoding is
@@ -18,67 +18,34 @@ from __future__ import annotations
 
 import codecs
 import ctypes
-import logging
 import os
 import re
 import threading
 
 import numpy as np
 
-from ..io.native import _BUILD, _build
+from ..io.native import load
 from ..utils.cfmt import fmt2f
 
-log = logging.getLogger(__name__)
-
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rows.cpp")
-_SO = os.path.join(_BUILD, "_rows.so")
 _ABI = 1  # must match hpgq_rows_abi_version() in rows.cpp
 
 _CONV = re.compile(r"%(i|c|0\.2f)")
 
-_lock = threading.Lock()
 _local = threading.local()
-_lib = None
-_tried = False
 
 
-def _load():
-    lib = ctypes.CDLL(_SO)
-    lib.hpgq_rows_abi_version.restype = ctypes.c_int
-    if lib.hpgq_rows_abi_version() != _ABI:
-        return None
+def _bind(lib):
     lib.hpgq_format_rows.restype = ctypes.c_int64
     lib.hpgq_format_rows.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
-    return lib
 
 
 def get_lib():
     """The loaded library, or None if unavailable."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("HPGQ_NO_NATIVE"):
-            return None
-        try:
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _build(_SRC, _SO)
-            lib = _load()
-            if lib is None:  # a stale library the mtime check missed
-                _build(_SRC, _SO)
-                lib = _load()
-            if lib is None:
-                raise RuntimeError("native rows ABI != %d" % _ABI)
-        except Exception as e:  # no compiler / load / symbol failure
-            log.info("native report rows unavailable (%s); using Python", e)
-            return None
-        _lib = lib
-        return _lib
+    return load(_SRC, "_rows.so", "hpgq_rows_abi_version", _ABI, _bind,
+                "report rows", "Python")
 
 
 def _columns(fmt: str, columns) -> list:

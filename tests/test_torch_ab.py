@@ -10,7 +10,9 @@ at a tiny size.
   fits its line and ``paired`` compares per read.
 * The CLI prints the card line first (null here) and exits 0.
 * A pass corrupted on purpose (one counter, one output byte) raises
-  ``bench_torch.BenchMismatch``, and the CLI exits 1.
+  ``ab_torch.BenchMismatch``, and the CLI exits 1.
+* The tool's checks pass on the engine's real result and bite on one byte
+  of a ``filter`` output, one counter or one CGR cell planted wrong.
 """
 
 import copy
@@ -21,7 +23,7 @@ import sys
 import pytest
 import torch
 
-import bench_torch
+from gen import make_fastq
 from hpgq_torch.oracle import assert_counters_equal
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -35,7 +37,7 @@ CPU = torch.device("cpu")
 def bench_dir(tmp_path, monkeypatch):
     """Corpora under the test's directory; the bitpack wire, so that the
     wire arms have tiers to switch between on the CPU."""
-    monkeypatch.setattr(bench_torch, "BENCH_DIR", str(tmp_path / "bench"))
+    monkeypatch.setattr(ab_torch, "BENCH_DIR", str(tmp_path / "bench"))
     monkeypatch.setenv("HPGQ_WIRE", "bitpack")
     for knob in ("HPGQ_READ_SHARDS", "HPGQ_COALESCE", "HPGQ_WIRE2C",
                  "HPGQ_WIRE6", "HPGQ_ASYNC_WRITES"):
@@ -72,7 +74,7 @@ def _same(cmd, a, b, label):
 def test_every_study_on_cpu(bench_dir, monkeypatch, capsys):
     """``--study all`` at 2,000 reads: see the module docstring."""
     seen = {}
-    real_check = bench_torch.check_result
+    real_check = ab_torch.check_result
 
     def recording_check(cmd, got, want, label):
         real_check(cmd, got, want, label)
@@ -80,7 +82,7 @@ def test_every_study_on_cpu(bench_dir, monkeypatch, capsys):
         seen.setdefault((study, command), {}).setdefault(
             arm, []).append(_digest(cmd, got))
 
-    monkeypatch.setattr(bench_torch, "check_result", recording_check)
+    monkeypatch.setattr(ab_torch, "check_result", recording_check)
     env = dict(os.environ)
     _, launches = ab_torch.run("all", CPU, rounds=2, reads=2000)
     assert dict(os.environ) == env
@@ -160,17 +162,17 @@ def test_corrupted_pass_fails(bench_dir, monkeypatch, capsys, plant):
     """One counter or one output byte planted wrong in the engine's pass
     raises ``BenchMismatch``; through the CLI it exits 1."""
     if plant == "stats counter":
-        real = bench_torch.engine_stats
+        real = ab_torch.engine_stats
 
         def bad(*a, **kw):
             n, c = real(*a, **kw)
             c.gc_hist[c.gc_hist.argmax()] += 1
             return n, c
 
-        monkeypatch.setattr(bench_torch, "engine_stats", bad)
+        monkeypatch.setattr(ab_torch, "engine_stats", bad)
         study = "wire6"
     else:
-        real = bench_torch.engine_filter
+        real = ab_torch.engine_filter
 
         def bad(*a, **kw):
             n, files = real(*a, **kw)
@@ -181,11 +183,50 @@ def test_corrupted_pass_fails(bench_dir, monkeypatch, capsys, plant):
                 f.write(b"A" if byte != b"A" else b"C")
             return n, files
 
-        monkeypatch.setattr(bench_torch, "engine_filter", bad)
+        monkeypatch.setattr(ab_torch, "engine_filter", bad)
         study = "writer"
-    with pytest.raises(bench_torch.BenchMismatch):
+    with pytest.raises(ab_torch.BenchMismatch):
         ab_torch.run(study, CPU, rounds=1, reads=400)
     assert ab_torch.main(["--study", study, "--device", "cpu", "--reads",
                           "400", "--rounds", "1"]) == 1
     last = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert last["error"].startswith("BenchMismatch")
+
+
+@pytest.mark.parametrize("plant", ["filter byte", "stats counter",
+                                   "cgr cell"])
+def test_engine_oracle_check_bites(tmp_path, plant):
+    """The tool's checks pass on the engine's real result and raise
+    :class:`ab_torch.BenchMismatch` once one byte, one counter or one
+    CGR cell is planted wrong."""
+    path = str(tmp_path / "in.fq")
+    make_fastq(path, 2500, min_len=100, max_len=100, n_prob=0.005, seed=7,
+               qual_bins=(2, 12, 23, 37))
+    os.makedirs(tmp_path / "e")
+    os.makedirs(tmp_path / "o")
+    if plant == "filter byte":
+        _, got = ab_torch.engine_filter(path, str(tmp_path / "e"), 1000, CPU)
+        _, want = ab_torch.oracle_filter(path, 1000, str(tmp_path / "o"))
+        ab_torch.check_files(got, want, "filter")
+        with open(got["passed.fq"], "r+b") as f:
+            f.seek(os.path.getsize(got["passed.fq"]) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(b"A" if byte != b"A" else b"C")
+        check = (ab_torch.check_files, got, want)
+    elif plant == "stats counter":
+        _, got = ab_torch.engine_stats(path, str(tmp_path / "e"), 1000, 0,
+                                       CPU)
+        _, want = ab_torch.oracle_stats(path, 1000)
+        ab_torch.check_counters(got, want, "stats")
+        got.gc_hist[got.gc_hist.argmax()] += 1
+        check = (ab_torch.check_counters, got, want)
+    else:
+        _, got = ab_torch.engine_cgr(path, 1000, CPU)
+        _, want = ab_torch.oracle_cgr(path)
+        ab_torch.check_tables(got, want, "cgr")
+        got[1][0, 0] += 1
+        check = (ab_torch.check_tables, got, want)
+    fn, got, want = check
+    with pytest.raises(ab_torch.BenchMismatch):
+        fn(got, want, plant)

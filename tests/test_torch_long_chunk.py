@@ -269,8 +269,7 @@ def _python_rows(monkeypatch):
     as without a compiler."""
     from hpgq_torch.report import rows
 
-    monkeypatch.setattr(rows, "_lib", None)
-    monkeypatch.setattr(rows, "_tried", True)
+    monkeypatch.setattr(rows, "get_lib", lambda: None)
 
 
 @pytest.mark.parametrize("native", [True, False], ids=["native", "python"])

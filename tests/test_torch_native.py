@@ -211,3 +211,108 @@ def test_wire_unqn8_roundtrip(tmp_path):
                 np.where(mask, dq, 0), np.where(mask, quals & 0x7F, 0))
             np.testing.assert_array_equal(
                 np.where(mask, dc, 0), np.where(mask, (codes == 4) * 4, 0))
+
+
+# ------------------------------------------- the one loader of g++ libraries
+
+def _library(name):
+    """(module, ABI symbol, a run of the library's caller) of the packer,
+    the gzip decoder or the report's row formatter.  The run gives what
+    the caller gives, and whether it took the native library."""
+    import gzip
+
+    from hpgq_torch.io.fastq import open_maybe_gzip
+    from hpgq_torch.io.native import inflate
+    from hpgq_torch.report import rows
+
+    def pack(tmp):
+        path = str(tmp / "r.fq")
+        make_fastq(path, 300, min_len=40, max_len=150, n_prob=0.01, seed=3)
+        with FastqReader(path, batch_size=128) as rd:
+            packed = [pack_block(b) for b in rd]
+        return [a.tobytes() for p in packed for a in p], native.available()
+
+    def read_gzip(tmp):
+        path = str(tmp / "r.fq.gz")
+        with gzip.open(path, "wb") as f:
+            f.write(b"@r\nACGT\n+\nIIII\n" * 5000)
+        with open_maybe_gzip(path) as f:
+            return f.read(), not isinstance(f, gzip.GzipFile)
+
+    def format_rows(tmp):
+        path = str(tmp / "rows.txt")
+        cols = (np.arange(2000), np.arange(2000) % 94 + 33,
+                np.linspace(0, 41, 2000))
+        with open(path, "w") as f:
+            rows.write_rows(f, "%i\t%c\t%0.2f\n", *cols)
+        with open(path) as f:
+            text = f.read()
+        assert text == rows.format_rows_py("%i\t%c\t%0.2f\n", *cols)
+        return text, rows.get_lib() is not None
+
+    return {"packer": (native, "hpgq_abi_version", pack),
+            "inflate": (inflate, "hpgq_inflate_abi_version", read_gzip),
+            "rows": (rows, "hpgq_rows_abi_version", format_rows)}[name]
+
+
+@pytest.mark.parametrize("case", ["HPGQ_NO_NATIVE", "wrong ABI",
+                                  "build fails"])
+@pytest.mark.parametrize("name", ["packer", "inflate", "rows"])
+def test_loader(tmp_path, monkeypatch, caplog, name, case):
+    """``native.load`` behind each library's ``get_lib``, with the build
+    directory moved under the test's: ``HPGQ_NO_NATIVE`` gives None and
+    builds nothing; a library whose ABI version is wrong is rebuilt once
+    and then loads (though the stale one stays loaded under its name); a
+    build that fails gives None, logs why, and the caller's fallback gives
+    the native library's result.  Each is decided once."""
+    import logging
+    import shutil
+    import subprocess
+
+    mod, symbol, run = _library(name)
+    real = mod.get_lib()
+    want, took_native = run(tmp_path)
+    assert real is not None and took_native
+    so_name = os.path.basename(real._name)
+    build = tmp_path / "_build"
+    built = []
+    real_build = native._build
+
+    def copy_real(src, so):  # the rebuild, without g++: the real library
+        built.append(so)
+        shutil.copy(real._name, so + ".part")
+        os.replace(so + ".part", so)  # a new inode, as the real build gives
+        return so
+
+    def fail(src, so):
+        built.append(so)
+        raise subprocess.CalledProcessError(1, ["g++"])
+
+    if case == "wrong ABI":
+        stub = tmp_path / "stub.cpp"
+        stub.write_text('extern "C" int %s(void) { return %d; }\n'
+                        % (symbol, mod._ABI + 1))
+        real_build(str(stub), str(build / so_name))
+    monkeypatch.setattr(native, "_BUILD", str(build))
+    if case == "HPGQ_NO_NATIVE":
+        monkeypatch.setenv("HPGQ_NO_NATIVE", "1")
+    monkeypatch.setattr(native, "_build",
+                        copy_real if case == "wrong ABI" else fail)
+    caplog.set_level(logging.INFO, logger=native.__name__)
+
+    lib = mod.get_lib()
+    assert mod.get_lib() is lib
+    got, took_native = run(tmp_path)
+    assert got == want
+    if case == "wrong ABI":
+        assert lib is not None and took_native
+        assert getattr(lib, symbol)() == mod._ABI
+        assert built == [str(build / so_name)]
+    else:
+        assert lib is None and not took_native
+        assert built == ([] if case == "HPGQ_NO_NATIVE"
+                         else [str(build / so_name)])
+        logged = "native %s unavailable" % {
+            "packer": "packer", "inflate": "inflate",
+            "rows": "report rows"}[name]
+        assert (logged in caplog.text) == (case == "build fails")

@@ -395,7 +395,7 @@ def imported(py):
             yield node.args[0].value
 
 
-sources = [os.path.join(repo, f) for f in ("chip_smoke.py", "bench_torch.py",
+sources = [os.path.join(repo, f) for f in ("chip_smoke.py",
                                           "tools/fuzz_torch.py",
                                           "tools/ab_torch.py")]
 for root, _, files in os.walk(os.path.join(repo, "hpgq_torch")):
@@ -517,11 +517,7 @@ fz = chip_smoke.fuzz_rounds("cpu", rounds=4, seed=chip_smoke.FUZZ_SEED,
                             max_n=800)
 assert sorted(c["cmd"] for c, _, _ in fz) == ["cgr", "edit", "filter",
                                               "stats"]
-# phase 16 small: every study of tools/ab_torch.py
-ab, _ = chip_smoke.ab_runs("cpu", outdir, reads=600, rounds=1,
-                           emit=lambda obj: None)
-assert len(ab) == 8, ab
-import bench_torch, fuzz_torch, ab_torch
+import fuzz_torch, ab_torch
 print("ok", len(names))
 """
 
@@ -540,9 +536,8 @@ def test_imports_load_no_jax(tmp_path):
     (phases 8-9) and its ``--sharded`` and legacy CLI checks (phase 13:
     world size 1 with and without the launcher's variables, two ranks
     over gloo and one started by ``hpgq_torch.dist.launch``, ``stats
-    --sharded`` through the CLI, a rank that raises), its gzip, BGZF, coalesced and profiled runs (phase 14),
-    fuzz rounds (phase 15) and the studies of ``tools/ab_torch.py`` (phase
-    16) run small on the CPU; ``bench_torch.py``, ``tools/fuzz_torch.py``
+    --sharded`` through the CLI, a rank that raises), its gzip, BGZF, coalesced and profiled runs (phase 14)
+    and fuzz rounds (phase 15) run small on the CPU; ``tools/fuzz_torch.py``
     and ``tools/ab_torch.py`` are walked and loaded too."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_RUN, REPO, str(tmp_path / "in.fq"),
@@ -551,26 +546,6 @@ def test_imports_load_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     ok, n = out.stdout.strip().splitlines()[-1].split()
     assert ok == "ok" and int(n) > 20
-
-
-def test_breakdown_runs_on_cpu(tmp_path, monkeypatch, capsys):
-    """``python -m hpgq_torch.breakdown`` at a small size: every arm and
-    stage reports, and the arms restore the environment."""
-    from hpgq_torch import breakdown
-
-    monkeypatch.delenv("HPGQ_WIRE", raising=False)
-    monkeypatch.delenv("HPGQ_READ_SHARDS", raising=False)
-    path = _corpus(tmp_path, "uniform")
-    assert breakdown.main([path, "--device", "cpu", "--turns", "2"]) == 0
-    text = capsys.readouterr().out
-    for label, _ in breakdown.ARMS:
-        assert re.search(r"^e2e %s +passes \S+ \S+ s; best \d+ reads/s"
-                         % re.escape(label), text, re.M), label
-    for stage in ("read + newline index:", "pack (wire None):",
-                  "pin + copy to cpu:", "device steps"):
-        assert stage in text
-    assert "HPGQ_WIRE" not in os.environ
-    assert "HPGQ_READ_SHARDS" not in os.environ
 
 
 def test_cuda_request_raises_here(tmp_path, capsys):

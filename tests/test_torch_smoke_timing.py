@@ -36,13 +36,13 @@ def _events_fail(prepare):
 
 @pytest.mark.parametrize("events", ["time", "fail"])
 def test_row_never_takes_the_wrapper_time(monkeypatch, capsys, events):
-    """The profiler's trace is incomplete (``kernel_device_ms`` gives
+    """The profiler's trace is incomplete (``kernel_profiler_ms`` gives
     None): the row's ``ms`` is the event timer's, or None when that
     fails, never the wrapper's, and the printed share is computed from
     the kernel's time or not at all."""
     monkeypatch.setattr(chip_smoke, "cuda_time_ms",
                         lambda fn: WRAPPER_MS if fn is _kernel else PLAIN_MS)
-    monkeypatch.setattr(chip_smoke, "kernel_device_ms",
+    monkeypatch.setattr(chip_smoke, "kernel_profiler_ms",
                         lambda fn, launches, name: None)
     monkeypatch.setattr(chip_smoke, "kernel_event_ms",
                         (lambda prepare: EVENTS_MS) if events == "time"
