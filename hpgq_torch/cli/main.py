@@ -23,6 +23,7 @@ import os
 import sys
 
 from .. import __version__
+from ..constants import DEFAULT_NUM_THREADS
 from ..options import (
     CgrOptions,
     EditOptions,
@@ -54,7 +55,7 @@ def _add_common(p: argparse.ArgumentParser, with_windows=True, with_encoding=Fal
                    help="Paired-end input, mate 2")
     p.add_argument("-o", "--outdir", dest="out_dirname",
                    help="Output directory name")
-    p.add_argument("--num-threads", "--cpu-num-threads", type=int, default=2,
+    p.add_argument("--num-threads", "--cpu-num-threads", type=int, default=None,
                    help="Number of threads")
     p.add_argument("--batch-size", type=int, default=None,
                    help="Batch size (in number of alignments; default 10000)")
@@ -265,7 +266,10 @@ def _ns_to_opts(ns: argparse.Namespace, cls):
                 "OR --fastq1/--fastq2 options, not both"
             )
     opts.out_dirname = ns.out_dirname
-    opts.num_threads = ns.num_threads
+    # the reference's default of 2 is printed; only a given value sets the
+    # native teams, else the plan of the host's cores does
+    opts.num_threads = (DEFAULT_NUM_THREADS if ns.num_threads is None
+                        else ns.num_threads)
     if ns.num_threads:
         from ..io.packer import set_num_threads
 

@@ -279,7 +279,7 @@ def run_stats_sharded(opts: StatsOptions,
     reader, blocks = open_shard_reader(path, opts, pg, timers, offset)
     with reader:
         items = _iter_packed(_coalesced(opts, blocks, dev), sess, br, timers,
-                             depth=opts.batch_list_size)
+                             depth=opts.batch_list_size, plan=reader.plan)
         for item in iter_lockstep(pg, items, ck is not None, timers):
             if item is not None:
                 block, arrs = item
@@ -348,12 +348,12 @@ def _run_stats_sharded_paired(opts, timers, pg, report: bool):
     last1, last2 = s1, s2
     batch = _reader_batch(opts, dev)
     with FastqReader(paths[0], batch_size=batch, start_offset=s1,
-                     end_offset=e1, timers=timers) as r1, \
+                     end_offset=e1, timers=timers, mates=2) as r1, \
             FastqReader(paths[1], batch_size=batch, start_offset=s2,
-                        end_offset=e2, timers=timers) as r2:
+                        end_offset=e2, timers=timers, mates=2) as r2:
         items = _iter_packed_paired(_iter_blocks_paired(
             _coalesced(opts, r1, dev), _coalesced(opts, r2, dev), timers),
-            sess, timers)
+            sess, timers, plan=r1.plan)
         for item in iter_lockstep(pg, items, ck is not None, timers):
             if item is not None:
                 b1, b2, in1, in2 = item
@@ -436,7 +436,7 @@ def run_cgr_sharded(opts, timers: Optional[StageTimers] = None,
         last = start or 0
         with reader:
             if ck is None:
-                sess.feed_all(blocks, timers)
+                sess.feed_all(blocks, timers, reader.plan)
                 continue
             for block in iter_lockstep(pg, _iter_blocks(blocks, timers),
                                        True, timers):

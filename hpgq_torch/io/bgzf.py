@@ -118,11 +118,12 @@ class BgzfFile:
     members are decompressed on a thread pool while the caller consumes the
     current one (zlib releases the GIL), lifting sequential decode from
     single-thread zlib speed to ~N× — the BGZF framing is what makes the
-    members independently decodable.  Each member's inflate is
+    members independently decodable.  The pool has ``workers`` threads (0:
+    one a member read ahead, at most one a core).  Each member's inflate is
     ``timers``' ``inflate`` stage."""
 
     def __init__(self, path: str, index=None, readahead: int = 8,
-                 timers=NO_TIMERS):
+                 timers=NO_TIMERS, workers: int = 0):
         self.path = path
         self._timers = timers
         self._fh = open(path, "rb")
@@ -132,6 +133,7 @@ class BgzfFile:
         self._blk = -1         # cached block id
         self._blk_data = b""
         self._ra = int(readahead)
+        self._workers = int(workers) or min(self._ra, os.cpu_count() or 1)
         self._pool = None
         self._futures = {}     # block id -> Future[bytes]
 
@@ -173,7 +175,7 @@ class BgzfFile:
             from concurrent.futures import ThreadPoolExecutor
 
             self._pool = ThreadPoolExecutor(
-                max_workers=min(self._ra, os.cpu_count() or 1),
+                max_workers=self._workers,
                 thread_name_prefix="bgzf",
             )
         n_blocks = len(self.c_offsets) - 1

@@ -29,7 +29,9 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..utils.timers import NO_TIMERS
-from .native.inflate import GzipReader, open_gzip
+from . import native
+from .native import inflate
+from .native.inflate import GzipReader
 
 _CHUNK = 16 * 1024 * 1024
 
@@ -135,17 +137,36 @@ class ReadaheadFile:
         self._fh.close()
 
 
-def _find_newlines(chunk) -> np.ndarray:
-    """Newline offsets; native memchr when built, numpy scan otherwise."""
-    from . import native
-
+def _find_newlines(chunk, num_threads: int = 0) -> np.ndarray:
+    """Newline offsets; native memchr on ``num_threads`` when built (0: the
+    thread's team), numpy scan otherwise."""
     if native.available():
-        return native.find_newlines(chunk)
+        return native.find_newlines(chunk, num_threads)
     arr = np.frombuffer(chunk, dtype=np.uint8)
     return np.flatnonzero(arr == 0x0A).astype(np.int64)
 
 
-def open_maybe_gzip(path: str, mode: str = "rb", timers=NO_TIMERS):
+def _kind(path: str) -> str:
+    """``plain``, ``gzip`` or ``bgzf``, by the file's magic."""
+    with open(path, "rb") as probe:
+        if probe.read(2) != b"\x1f\x8b":
+            return "plain"
+    from .bgzf import is_bgzf
+
+    return "bgzf" if is_bgzf(path) else "gzip"
+
+
+def _decoder(path: str, kind: str) -> str:
+    """The decode pool a reader of ``path`` runs, as :func:`plan` names
+    it: ``bgzf``, ``gzip`` where the native decoder reads the file on
+    several threads (two chunks or more), else none."""
+    if kind == "gzip" and inflate.get_lib() and inflate._workers(path):
+        return "gzip"
+    return "bgzf" if kind == "bgzf" else ""
+
+
+def open_maybe_gzip(path: str, mode: str = "rb", timers=NO_TIMERS,
+                    decode=None):
     """Open a file, transparently decompressing gzip (magic-sniffed).
 
     BGZF files (bgzip framing) get the seekable block reader — logical
@@ -154,16 +175,17 @@ def open_maybe_gzip(path: str, mode: str = "rb", timers=NO_TIMERS):
     inflate in ``timers``.  Other gzip input is read by the native decoder
     (:class:`~hpgq_torch.io.native.inflate.GzipReader`), or by
     :mod:`gzip` where the library cannot be built or ``HPGQ_NO_NATIVE`` is
-    set; gzip output is :mod:`gzip`'s."""
+    set; gzip output is :mod:`gzip`'s.  ``decode``: the threads of the
+    file's decode pool as the caller planned them (gzip: 0 for the
+    one-thread decoder); None leaves each reader its own rule."""
     if "r" in mode:
-        with open(path, "rb") as probe:
-            magic = probe.read(2)
-        if magic == b"\x1f\x8b":
-            from .bgzf import BgzfFile, is_bgzf
+        kind = _kind(path)
+        if kind == "bgzf":
+            from .bgzf import BgzfFile
 
-            if is_bgzf(path):
-                return BgzfFile(path, timers=timers)
-            return open_gzip(path) or gzip.open(path, mode)
+            return BgzfFile(path, timers=timers, workers=decode or 0)
+        if kind == "gzip":
+            return inflate.open_gzip(path, decode) or gzip.open(path, mode)
         return open(path, mode)
     if path.endswith(".gz"):
         return gzip.open(path, mode)
@@ -477,6 +499,23 @@ def coalesce_blocks(blocks, target_reads: int):
         yield concat_same_chunk(pend)
 
 
+def _first_bad(chunk, starts: np.ndarray, ends: np.ndarray) -> int:
+    """numpy's record checks, where the native library is not built:
+    each line end moved back over a '\\r' before its newline (in
+    ``ends``), and the first record whose sequence and quality lengths
+    differ or whose header is not '@' or separator not '+' (-1 for
+    none).  A desynced 4-line grouping (a truncated or corrupt file)
+    shows so; the packers index the chunk by sequence length, so it would
+    otherwise become out-of-bounds reads or silently wrong stats."""
+    arr = np.frombuffer(chunk, dtype=np.uint8)
+    ends -= arr[np.maximum(ends - 1, 0)] == 0x0D  # CRLF line terminators
+    sl = ends[:, 1] - starts[:, 1]
+    ql = ends[:, 3] - starts[:, 3]
+    bad = (sl != ql) | (arr[starts[:, 0]] != 0x40) \
+        | (arr[starts[:, 2]] != 0x2B)  # '@' header, '+' separator
+    return int(np.flatnonzero(bad)[0]) if bad.any() else -1
+
+
 def _index_lines(chunk: bytes, nl: np.ndarray, nrec: int) -> "tuple[np.ndarray, np.ndarray]":
     """Build [nrec,4] line start/end offset arrays from newline positions."""
     if nrec == 0:
@@ -498,7 +537,8 @@ class FastqReader:
     (``fastq_fread_se(fq_reads, max_num_reads, file)``, src/stats_fastq.c:183).
     ``timers``: the pass's stage timers, which get the ``index`` stage of
     each chunk on the thread that iterates the reader and the ``inflate``
-    stage of a compressed input on the threads that inflate it.
+    stage of a compressed input on the threads that inflate it, the count
+    ``team-short`` and, as a note, the reader's :attr:`plan`.
     """
 
     def __init__(
@@ -508,14 +548,28 @@ class FastqReader:
         start_offset: int = 0,
         end_offset: Optional[int] = None,
         timers=NO_TIMERS,
+        shards: int = 1,
+        mates: int = 1,
+        packers: Optional[int] = None,
     ):
         """``start_offset``/``end_offset`` bound the byte range read — used
         for multi-host sharding of a plain FASTQ file (offsets must be
-        record-aligned, see ``hpgq.dist.mesh.split_byte_ranges``)."""
+        record-aligned, see ``hpgq.dist.mesh.split_byte_ranges``).
+
+        ``shards``, ``mates`` and ``packers`` describe the pipeline the
+        reader feeds (:func:`hpgq_torch.io.native.plan`): the shard
+        pipelines running at once, its readers (2 for paired input) and
+        the pack workers asked for (None: the plan's choice, 0: the
+        reader's thread packs).  :attr:`plan` shares the host's cores
+        among its decode pool, index and pack; the file is opened with
+        the plan's decode pool."""
         self.path = path
         self.batch_size = int(batch_size)
         self._timers = timers
-        self._fh = open_maybe_gzip(path, "rb", timers)
+        self.plan = native.plan(_decoder(path, _kind(path)), shards, mates,
+                                packers)
+        timers.note("plan %s: %s" % (os.path.basename(path), self.plan))
+        self._fh = open_maybe_gzip(path, "rb", timers, self.plan.decode)
         if start_offset:
             self._fh.seek(start_offset)
         if isinstance(self._fh, (GzipReader, gzip.GzipFile)):
@@ -547,6 +601,7 @@ class FastqReader:
                 return None
             with self._timers.stage("index"):
                 block = self._index(data)
+            native.count_team_short(self._timers)
             if block is not None:
                 return block
 
@@ -559,11 +614,13 @@ class FastqReader:
             if not chunk.endswith(b"\n"):
                 chunk += b"\n"
             return self._block_from(chunk)
-        # avoid large copies: concat only when a tail carries over, and
-        # keep the (partial-record) remainder inside the block buffer —
-        # starts/ends simply don't cover it
-        chunk = self._tail + data if self._tail else data
-        nl = _find_newlines(chunk)
+        # avoid large copies: join (natively, off the interpreter lock)
+        # only when a tail carries over, and keep the (partial-record)
+        # remainder inside the block buffer — starts/ends simply don't
+        # cover it
+        chunk = native.join(self._tail, data, self.plan.index) \
+            if self._tail else data
+        nl = _find_newlines(chunk, self.plan.index)
         nrec = len(nl) // 4
         if nrec == 0:
             self._tail = chunk
@@ -575,42 +632,26 @@ class FastqReader:
     def _block_from(self, chunk: bytes, nl: Optional[np.ndarray] = None,
                     consumed: Optional[int] = None) -> RecordBlock:
         if nl is None:
-            nl = _find_newlines(chunk)
+            nl = _find_newlines(chunk, self.plan.index)
         nrec = len(nl) // 4
         nl = np.asarray(nl, dtype=np.int64)
-        from . import native
-
         if nrec and native.available():
-            starts, ends = native.line_table(nl, nrec)
+            # the native pass below, with the interpreter lock released
+            starts, ends, i = native.record_table(chunk, nl, nrec)
         else:
             starts, ends = _index_lines(chunk, nl, nrec)
-        if nrec:
-            # CRLF tolerance: a '\r' before the newline is line terminator,
-            # not sequence/quality content
-            arr = np.frombuffer(chunk, dtype=np.uint8)
-            flat = ends.reshape(-1)
-            cr = arr[np.maximum(flat - 1, 0)] == 0x0D
-            if cr.any():
-                ends = (flat - cr.astype(np.int64)).reshape(nrec, 4)
-            # Structural validation (vectorized, one compare per block):
-            # seq/qual length mismatch or wrong record markers mean the
-            # 4-line grouping is desynced (truncated/corrupt file) — the
-            # packers index the chunk by seq length, so garbage here would
-            # otherwise become out-of-bounds reads / silent wrong stats.
-            sl = ends[:, 1] - starts[:, 1]
-            ql = ends[:, 3] - starts[:, 3]
-            bad = (sl != ql) | (arr[starts[:, 0]] != 0x40) \
-                | (arr[starts[:, 2]] != 0x2B)  # '@' header, '+' separator
-            if bad.any():
-                i = int(np.flatnonzero(bad)[0])
-                raise FastqParseError(
-                    "malformed FASTQ record near byte offset %d of %s: "
-                    "header %r, sequence length %d, quality length %d"
-                    % (self.bytes_consumed + int(starts[i, 0]), self.path,
-                       bytes(chunk[starts[i, 0]:
-                                   min(ends[i, 0], starts[i, 0] + 40)]),
-                       int(sl[i]), int(ql[i]))
-                )
+            i = _first_bad(chunk, starts, ends) if nrec else -1
+        if i >= 0:
+            sl = ends[i, 1] - starts[i, 1]
+            ql = ends[i, 3] - starts[i, 3]
+            raise FastqParseError(
+                "malformed FASTQ record near byte offset %d of %s: "
+                "header %r, sequence length %d, quality length %d"
+                % (self.bytes_consumed + int(starts[i, 0]), self.path,
+                   bytes(chunk[starts[i, 0]:
+                               min(ends[i, 0], starts[i, 0] + 40)]),
+                   int(sl), int(ql))
+            )
         base = self.bytes_consumed
         self.bytes_consumed += len(chunk) if consumed is None else consumed
         return RecordBlock(chunk, starts, ends, base_offset=base)

@@ -1,7 +1,8 @@
 """The port's own copy of ``hpgq/io/native/__init__.py`` (the port imports nothing of
 ``hpgq``); the library builds
-from this directory's ``packer.cpp`` (a copy of ``hpgq``'s, same ABI) into
-``_build/`` here, never into or from ``hpgq``'s directory.
+from this directory's ``packer.cpp`` (grown from ``hpgq``'s: the same
+buffers, an ABI of its own) into ``_build/`` here, never into or from
+``hpgq``'s directory.
 
 Native (C++) packer: build-on-demand + ctypes bindings.
 
@@ -14,11 +15,18 @@ no pybind11 (see repo environment notes).
 :func:`load` builds and loads every g++ library of the port, this packer,
 ``inflate.cpp`` (:mod:`.inflate`) and ``report/rows.cpp``
 (:mod:`hpgq_torch.report.rows`), all into ``_build/`` here.
+
+:func:`plan` shares the process's host cores among a reader's stages: the
+decode pool, the index's newline scan and the pack calls.  A call here that
+is given no team size takes the user's (:func:`set_num_threads`), else its
+thread's planned one (:func:`use_team`), else all the cores a lone caller
+may use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import logging
 import os
 import subprocess
@@ -126,7 +134,192 @@ def get_lib():
                 "packer", "numpy packer")
 
 
-_ABI = 8  # must match hpgq_abi_version() in packer.cpp
+_ABI = 10  # must match hpgq_abi_version() in packer.cpp
+
+# ---------------------------------------------------------------- the plan
+
+_TEAM_MAX = 8  # the widest team a call gets unless the user asks for more
+_explicit = 0  # the user's team size (--num-threads), 0 = planned
+_team = threading.local()  # .size: the calling thread's planned team
+
+
+def set_num_threads(n: int) -> None:
+    """The user's team size for every native call and stage (the CLI's
+    ``--num-threads``); 0 gives the choice back to :func:`plan`."""
+    global _explicit
+    _explicit = max(0, int(n))
+
+
+def num_threads() -> int:
+    """The user's team size, 0 where none was set."""
+    return _explicit
+
+
+def usable_cores() -> int:
+    """The cores this process may use: its CPU affinity, shared among
+    the host's local ranks (``LOCAL_WORLD_SIZE``), at least 1."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:
+        cores = os.cpu_count() or 1
+    try:
+        ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", "1")))
+    except ValueError:
+        ranks = 1
+    return max(1, cores // ranks)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Threads of a reader's stages that run at once (:func:`plan`)."""
+
+    cores: int     # usable cores (:func:`usable_cores`)
+    pools: int     # decode pools: 0, 1 (gzip's, shared) or one a reader (BGZF)
+    decode: int    # each decode pool's threads
+    shards: int    # shard pipelines running at once, each as below
+    mates: int     # a pipeline's readers, each indexing (2 for paired input)
+    index: int     # each reader's newline-scan team
+    packers: int   # a pipeline's pack workers, 0: its reader packs in turn
+    pack: int      # each pack call's team
+    intra_op: int  # threads of each packed batch's copy to pinned memory
+
+    def threads(self) -> int:
+        """The threads the plan runs at once."""
+        if self.packers:
+            work = self.mates * self.index + self.packers * self.pack
+        else:
+            work = self.mates * max(self.index, self.pack)
+        return self.pools * self.decode + self.shards * work
+
+    def __str__(self) -> str:
+        return ("decode %d x %d, %d x (index %d x %d, pack %d x %d), "
+                "intra-op %d: %d threads of %d cores" % (
+                    self.pools, self.decode, self.shards, self.mates,
+                    self.index, self.packers, self.pack, self.intra_op,
+                    self.threads(), self.cores))
+
+
+def plan(decoder: str = "", shards: int = 1, mates: int = 1,
+         packers=None) -> Plan:
+    """One plan of the process's host cores for a reader's stages, and the
+    one place that sizes the decode pools.
+
+    ``decoder``: the input's decode pool, ``""`` for none (plain text),
+    ``"gzip"`` for the parallel gzip reader's (one pool, shared by the
+    process's readers) or ``"bgzf"`` for a BGZF pool of each reader's own;
+    ``shards``: pipelines of one or two readers that run at once (shard
+    readers), each with ``mates`` readers (2 for paired input) and
+    ``packers`` pack workers (None: as many as fit, at most 4; 0: the
+    reader packs its own blocks in turn).
+
+    The gzip pool gets half the cores if that is two threads or more,
+    else there is none and the reader's own thread decodes; the BGZF
+    pools share half the cores, each at least one thread and at most 8.
+    Each pipeline takes an equal share of the rest, each reader keeps a
+    core of it, the pack workers take what is left, each a team of
+    ``(share - mates) // packers``, and the readers' scans what the
+    workers leave.  Where fewer than two workers would fit, a single-end
+    reader packs its own blocks on the whole share, and a paired one hands
+    them to one worker.  Every team is 1 to 8 threads, and a pinned copy
+    uses its pack team, so the threads that run at once
+    (:meth:`Plan.threads`) stay within the usable cores wherever the
+    decode pools, the readers (and a paired pipeline's one pack worker)
+    fit, unless the user says otherwise: :func:`set_num_threads`
+    (``--num-threads``) sets every team, ``HPGQ_PACK_THREADS`` the pack
+    workers."""
+    cores = usable_cores()
+    shards, mates = max(1, int(shards)), max(1, int(mates))
+    pools = decode = 0
+    if decoder == "gzip" and cores // 2 >= 2:
+        pools, decode = 1, cores // 2
+    elif decoder == "bgzf":
+        pools = shards * mates
+        decode = max(1, min(8, cores // 2 // pools))
+    share = max(1, (cores - pools * decode) // shards)
+    fewest = 1 if mates > 1 else 0  # paired blocks are packed off the readers
+    forced = int(os.environ.get("HPGQ_PACK_THREADS", "0") or 0)
+    if forced > 0:
+        packers = forced if forced > 1 else fewest
+    elif packers is None or packers > 0:
+        packers = min(4 if packers is None else int(packers), share - mates)
+        if packers < 2:
+            packers = fewest
+    else:
+        packers = fewest
+    if packers:
+        pack = max(1, (share - mates) // packers)
+        index = max(1, (share - packers * pack) // mates)
+    else:
+        index = pack = share
+    index, pack = min(index, _TEAM_MAX), min(pack, _TEAM_MAX)
+    if _explicit:
+        index = pack = _explicit
+    return Plan(cores, pools, decode, shards, mates, index, packers, pack,
+                pack)
+
+
+def use_team(n: int) -> None:
+    """The team size of the calling thread's native calls that are given
+    none (a pack worker's share of the plan); 0 clears it."""
+    _team.size = max(0, int(n))
+
+
+def _threads(num_threads: int) -> int:
+    """The team of a call given ``num_threads`` (<= 0: none)."""
+    if num_threads > 0:
+        return num_threads
+    if _explicit:
+        return _explicit
+    return getattr(_team, "size", 0) or min(_TEAM_MAX, usable_cores())
+
+
+def count_team_short(timers) -> None:
+    """Add to ``timers``' count ``team-short`` the calling thread's native
+    calls whose OpenMP team came up smaller than asked since it last did
+    (nothing without the library)."""
+    lib = get_lib()
+    if lib is not None:
+        timers.count("team-short", lib.hpgq_team_short())
+
+
+def copy_into(dst: np.ndarray, src: np.ndarray, num_threads: int = 0) -> None:
+    """``dst[...] = src`` for arrays of one shape and dtype, on a native
+    team (``num_threads``, 0: the calling thread's) where both are
+    contiguous."""
+    lib = get_lib()
+    if (lib is None or not dst.flags.c_contiguous
+            or not src.flags.c_contiguous or dst.nbytes != src.nbytes):
+        np.copyto(dst, src)
+        return
+    lib.hpgq_copy(src.ctypes.data, dst.ctypes.data, src.nbytes,
+                  _threads(num_threads))
+
+
+# a bytes object of n bytes left uninitialized, for native code to fill
+# before anyone else sees it (the C API's documented way to build bytes);
+# a private prototype, so ctypes.pythonapi's shared one stays as it is
+new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p,
+                              ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
+
+
+def _address(buf: bytes) -> int:
+    """The address of a bytes object's first byte."""
+    return ctypes.cast(ctypes.c_char_p(buf), ctypes.c_void_p).value
+
+
+def join(head: bytes, tail: bytes, num_threads: int = 0) -> bytes:
+    """``head + tail``, copied by native code with the interpreter lock
+    released, ``tail`` on a team (``num_threads``, 0: the calling
+    thread's); ``head + tail`` itself without the library."""
+    lib = get_lib()
+    if lib is None:
+        return head + tail
+    out = new_bytes(None, len(head) + len(tail))
+    at = _address(out)
+    lib.hpgq_copy(head, at, len(head), 1)
+    lib.hpgq_copy(tail, at + len(head), len(tail), _threads(num_threads))
+    return out
 
 
 def _bind(lib):
@@ -145,8 +338,6 @@ def _bind(lib):
         u8p, i64p, i64p, i32p,
         ctypes.c_int64, ctypes.c_int64, i8p, i8p, u8p, ctypes.c_int,
     ]
-    lib.hpgq_line_table.restype = None
-    lib.hpgq_line_table.argtypes = [i64p, ctypes.c_int64, i64p, i64p]
     lib.hpgq_concat_spans.restype = ctypes.c_int64
     lib.hpgq_concat_spans.argtypes = [
         u8p, i64p, i64p, ctypes.c_int64, u8p,
@@ -191,6 +382,14 @@ def _bind(lib):
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         i8p, u8p, i32p, ctypes.c_int64, u8p, ctypes.c_int,
     ]
+    lib.hpgq_team_short.restype = ctypes.c_int64
+    lib.hpgq_team_short.argtypes = []
+    lib.hpgq_copy.restype = None
+    lib.hpgq_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_int64, ctypes.c_int]
+    lib.hpgq_record_table.restype = ctypes.c_int64
+    lib.hpgq_record_table.argtypes = [u8p, i64p, ctypes.c_int64, i64p,
+                                      i64p]
 
 
 def available() -> bool:
@@ -223,9 +422,12 @@ def find_newlines(buf, num_threads: int = 0) -> np.ndarray:
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
     n = arr.shape[0]
     if n >= (1 << 21):
-        if num_threads <= 0:
-            num_threads = min(8, os.cpu_count() or 1)
+        num_threads = _threads(num_threads)
         out = _nl_scratch(max(64, n // 8))
+        if num_threads == 1:  # one pass, where the scratch holds them all
+            cnt = lib.hpgq_find_newlines(arr, n, out, out.shape[0])
+            if cnt < out.shape[0]:
+                return out[:cnt]
         # capacity-aware: the C side returns the negated true count (writing
         # nothing) when it exceeds cap; retry once with the exact size
         cnt = lib.hpgq_find_newlines_mt(arr, n, out, out.shape[0], num_threads)
@@ -252,13 +454,20 @@ def find_newlines(buf, num_threads: int = 0) -> np.ndarray:
     return chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
 
 
-def line_table(nl: np.ndarray, nrec: int):
+def record_table(buf, nl: np.ndarray, nrec: int):
+    """``(starts, ends, bad)``: the [nrec, 4] line tables of ``nrec``
+    records of ``buf``, from their newline offsets, each line end moved
+    back over a ``\\r`` before its newline, and the first record whose
+    sequence and quality lengths differ or whose header is not ``@`` or
+    separator not ``+`` (-1 for none); one native pass with the
+    interpreter lock released."""
     lib = get_lib()
+    arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
     starts = np.empty((nrec, 4), dtype=np.int64)
     ends = np.empty((nrec, 4), dtype=np.int64)
-    lib.hpgq_line_table(np.ascontiguousarray(nl[: nrec * 4]), nrec,
-                        starts.reshape(-1), ends.reshape(-1))
-    return starts, ends
+    bad = lib.hpgq_record_table(arr, np.ascontiguousarray(nl[: nrec * 4]),
+                                nrec, starts.reshape(-1), ends.reshape(-1))
+    return starts, ends, int(bad)
 
 
 def concat_spans(buf, starts, ends) -> memoryview:
@@ -283,8 +492,7 @@ def pack_bitwire(buf, seq_starts, q_starts, lens, L: int, nrows: int,
     n = len(lens)
     W = 3 * L // 8 + 7 * L // 8 + 8
     out = np.empty((nrows, W), dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     from ..packer import BASE_LUT
 
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
@@ -321,8 +529,7 @@ def pack_bitwire6(buf, seq_starts, q_starts, lens, L: int, nrows: int,
     n = len(lens)
     W = bitwire6_width(L)
     out = np.empty((nrows, W), dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     from ..packer import BASE_LUT
 
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
@@ -371,8 +578,7 @@ def pack_bitwire2q(buf, seq_starts, q_starts, lens, L: int, nrows: int,
     n = len(lens)
     W = bitwire2q_width(L)
     out = np.empty((nrows, W), dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     from ..packer import BASE_LUT
 
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
@@ -448,8 +654,7 @@ def pack_bitwire2c(buf, seq_starts, q_starts, lens, L: int, nrows: int,
     n = len(lens)
     W = bitwire2c_width(L)
     out = np.empty((nrows, W), dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     exc_cap = max(8192, n * L // 16)
     exc = np.empty(exc_cap, dtype=np.int32)
     from ..packer import BASE_LUT
@@ -495,8 +700,7 @@ def pack_bitwire2u(buf, seq_starts, q_starts, lens, Lu: int, nrows: int,
     W = bitwire2u_width(Lu)
     out = np.empty((nrows, W), dtype=np.uint8)
     pal = np.zeros(4, dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     exc_cap = max(8192, n * Lu // 16)
     exc = np.empty(exc_cap, dtype=np.int32)
     from ..packer import BASE_LUT
@@ -524,8 +728,7 @@ def pack_qnwire(buf, seq_starts, q_starts, lens, L: int, nrows: int,
     lib = get_lib()
     n = len(lens)
     out = np.empty((nrows, L + 8), dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     from ..packer import BASE_LUT
 
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
@@ -547,8 +750,7 @@ def pack_rows(buf, seq_starts, q_starts, lens, lmax: int, nrows: int,
     n = len(lens)
     codes = np.empty((nrows, lmax), dtype=np.int8)
     quals = np.empty((nrows, lmax), dtype=np.uint8)
-    if num_threads <= 0:
-        num_threads = min(8, os.cpu_count() or 1)
+    num_threads = _threads(num_threads)
     from ..packer import BASE_LUT
 
     arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf

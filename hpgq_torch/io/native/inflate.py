@@ -32,18 +32,11 @@ import os
 import threading
 import zlib
 
-from . import load
+from . import load, new_bytes, plan
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "inflate.cpp")
 _ABI = 2  # must match hpgq_inflate_abi_version() in inflate.cpp
 CHUNK_BYTES = 4 << 20  # compressed bytes of one chunk on the parallel path
-
-# a bytes object of n bytes left uninitialized, for the decoder to fill
-# before anyone else sees it (the C API's documented way to build bytes);
-# a private prototype, so ctypes.pythonapi's shared one stays as it is
-_new_bytes = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p,
-                               ctypes.c_ssize_t)(
-    ("PyBytes_FromStringAndSize", ctypes.pythonapi))
 
 _ERRORS = {1: EOFError, 2: gzip.BadGzipFile, 3: zlib.error, 4: OSError}
 
@@ -78,28 +71,24 @@ def get_lib():
                 "inflate", "gzip")
 
 
-def open_gzip(path: str) -> "GzipReader | None":
-    """A :class:`GzipReader` over ``path``, or None without the library."""
+def open_gzip(path: str, workers=None) -> "GzipReader | None":
+    """A :class:`GzipReader` over ``path`` with ``workers`` decode threads
+    (as the reader takes them), or None without the library."""
     lib = get_lib()
-    return None if lib is None else GzipReader(lib, path)
+    return None if lib is None else GzipReader(lib, path, workers)
 
 
 def _workers(path: str) -> int:
     """Decode threads for the file at ``path``: none (one-thread decoding)
-    under two chunks or four usable cores; else half the cores, divided
-    among the host's local ranks (``LOCAL_WORLD_SIZE``), at least 2."""
+    under two chunks, else the plan's gzip pool
+    (:func:`hpgq_torch.io.native.plan`)."""
     try:
         size = os.path.getsize(path)
-        cores = len(os.sched_getaffinity(0))
-    except (OSError, AttributeError):
+    except OSError:
         return 0
-    if size < 2 * CHUNK_BYTES or cores < 4:
+    if size < 2 * CHUNK_BYTES:
         return 0
-    try:
-        ranks = max(1, int(os.environ.get("LOCAL_WORLD_SIZE", "1")))
-    except ValueError:
-        ranks = 1
-    return max(2, cores // 2 // ranks)
+    return plan("gzip").decode
 
 
 # the parallel reader's counts (hpgq_pgz_counts), in its order
@@ -109,23 +98,23 @@ COUNTS = ("inflate-chunks", "inflate-markers", "inflate-restarts")
 class GzipReader:
     """Read-only, forward-only file over a gzip file's text (every member
     in turn), decoded by the native library; the first member on several
-    threads where the file and the cores allow (:func:`_workers`).
-    ``_parallel`` = (workers, chunk bytes) forces the parallel reader at
-    any size, (0, 0) the one-thread one, for tests."""
+    threads where the file and the cores allow.  ``workers``: the parallel
+    reader's decode threads, at any size of file (0: the one-thread
+    reader; None: :func:`_workers`), each chunk ``chunk_bytes`` of
+    compressed bytes (0: :data:`CHUNK_BYTES`)."""
 
     COUNTER = "inflate-native-bytes"  # the stage timers' count of its bytes
 
-    def __init__(self, lib, path: str, _parallel=None):
+    def __init__(self, lib, path: str, workers=None, chunk_bytes: int = 0):
         self._lib = lib
         self._io = threading.Lock()  # close waits for a read in progress
         self._pos = 0
-        if _parallel is None:
+        if workers is None:
             workers = _workers(path)
-            _parallel = (workers, CHUNK_BYTES) if workers else None
-        self.parallel = bool(_parallel and _parallel[0])
+        self.parallel = workers > 0
         if self.parallel:
-            self._h = lib.hpgq_pgz_open(os.fsencode(path), int(_parallel[0]),
-                                        int(_parallel[1]))
+            self._h = lib.hpgq_pgz_open(os.fsencode(path), int(workers),
+                                        int(chunk_bytes or CHUNK_BYTES))
             self._read, self._message, self._close = (
                 lib.hpgq_pgz_read, lib.hpgq_pgz_message, lib.hpgq_pgz_close)
         else:
@@ -176,7 +165,7 @@ class GzipReader:
                 parts.append(part)
         if n == 0:
             return b""
-        buf = _new_bytes(None, n)
+        buf = new_bytes(None, n)
         got = self._fill(buf, n)
         return buf if got == n else buf[:got]
 

@@ -16,25 +16,137 @@
 #ifdef _OPENMP
 #include <omp.h>
 #endif
+#if defined(__x86_64__) && defined(__GNUC__)
+#include <immintrin.h>
+#endif
+
+namespace {
+
+// Parallel regions of this thread's native calls whose team came up
+// smaller than asked (OMP_THREAD_LIMIT, nesting, a dynamic runtime), since
+// its last hpgq_team_short().  The output never depends on it: a team
+// splits rows by iteration (omp for) or loops over every planned slice.
+thread_local int64_t t_team_short = 0;
+
+// Called in a region by its first thread (thread 0, which a static
+// schedule gives the first iteration): counts a short team.
+inline void note_team(int asked) {
+#ifdef _OPENMP
+    if (omp_get_thread_num() == 0 && omp_get_num_threads() < asked)
+        ++t_team_short;
+#else
+    if (asked > 1) ++t_team_short;
+#endif
+}
+
+// The offsets of the newlines in buf[lo, hi): counted, or written to
+// `out` until `cap` are (returning how many).  32 bytes a step where the
+// CPU has AVX2 (positions from one compare's bit mask: C's records put a
+// newline every 58 bytes on average, where a memchr a line pays a call
+// for little), else memchr.
+#if defined(__x86_64__) && defined(__GNUC__)
+__attribute__((target("avx2"))) int64_t newlines_avx2(
+        const uint8_t* buf, int64_t lo, int64_t hi, int64_t* out,
+        int64_t cap) {
+    const __m256i nl = _mm256_set1_epi8('\n');
+    int64_t cnt = 0;
+    int64_t i = lo;
+    for (; i + 32 <= hi; i += 32) {
+        uint32_t m = (uint32_t)_mm256_movemask_epi8(_mm256_cmpeq_epi8(
+            _mm256_loadu_si256(reinterpret_cast<const __m256i*>(buf + i)),
+            nl));
+        if (!out) {
+            cnt += __builtin_popcount(m);
+            continue;
+        }
+        for (; m; m &= m - 1) {
+            if (cnt >= cap) return cnt;
+            out[cnt++] = i + __builtin_ctz(m);
+        }
+    }
+    for (; i < hi; ++i) {
+        if (buf[i] != '\n') continue;
+        if (out) {
+            if (cnt >= cap) return cnt;
+            out[cnt] = i;
+        }
+        ++cnt;
+    }
+    return cnt;
+}
+
+bool has_avx2() {
+    static const bool yes = (__builtin_cpu_init(),
+                             __builtin_cpu_supports("avx2") != 0);
+    return yes;
+}
+#endif
+
+int64_t newlines(const uint8_t* buf, int64_t lo, int64_t hi, int64_t* out,
+                 int64_t cap) {
+#if defined(__x86_64__) && defined(__GNUC__)
+    if (has_avx2()) return newlines_avx2(buf, lo, hi, out, cap);
+#endif
+    int64_t cnt = 0;
+    const uint8_t* p = buf + lo;
+    const uint8_t* end = buf + hi;
+    while (p < end) {
+        const uint8_t* hit =
+            static_cast<const uint8_t*>(memchr(p, '\n', end - p));
+        if (!hit) break;
+        if (out) {
+            if (cnt >= cap) break;
+            out[cnt] = hit - buf;
+        }
+        ++cnt;
+        p = hit + 1;
+    }
+    return cnt;
+}
+
+}  // namespace
 
 extern "C" {
+
+// The calling thread's short teams since its last call (see note_team),
+// and zero after it.
+int64_t hpgq_team_short(void) {
+    const int64_t n = t_team_short;
+    t_team_short = 0;
+    return n;
+}
+
+// to[0..n) = from[0..n) in up to `num_threads` contiguous pieces: a packed
+// batch into its pinned staging buffer on the pack worker's team, a
+// chunk behind the reader's carried tail on the index's.
+void hpgq_copy(const void* from, void* to, int64_t n, int num_threads) {
+    const uint8_t* src = static_cast<const uint8_t*>(from);
+    uint8_t* dst = static_cast<uint8_t*>(to);
+    if (num_threads < 1) num_threads = 1;
+    const int64_t min_piece = 1 << 20;  // a team pays off past ~1 MB a thread
+    int T = (int)((n + min_piece - 1) / min_piece);
+    if (T > num_threads) T = num_threads;
+    if (T <= 1) {
+        if (n > 0) memcpy(dst, src, (size_t)n);
+        return;
+    }
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static, 1) num_threads(T)
+#endif
+    for (int s = 0; s < T; ++s) {
+        if (s == 0) note_team(T);
+        const int64_t lo = n * s / T;
+        const int64_t hi = n * (s + 1) / T;
+        memcpy(dst + lo, src + lo, (size_t)(hi - lo));
+    }
+}
 
 // Scan `buf[0..n)` for newline positions, recording up to `max_lines` of
 // them into `nl`.  Returns the number recorded.  (memchr-based: glibc's
 // AVX2 memchr is ~an order of magnitude faster than a numpy == scan.)
 int64_t hpgq_find_newlines(const uint8_t* buf, int64_t n, int64_t* nl,
                            int64_t max_lines) {
-    int64_t cnt = 0;
-    const uint8_t* p = buf;
-    const uint8_t* end = buf + n;
-    while (cnt < max_lines) {
-        const uint8_t* hit =
-            static_cast<const uint8_t*>(memchr(p, '\n', end - p));
-        if (!hit) break;
-        nl[cnt++] = hit - buf;
-        p = hit + 1;
-    }
-    return cnt;
+    return newlines(buf, 0, n, nl, max_lines);
 }
 
 // Pack `n` reads into codes[n*lmax] (int8 base codes, pad=5) and
@@ -50,6 +162,7 @@ void hpgq_pack(const uint8_t* buf, const int64_t* seq_starts,
 #pragma omp parallel for schedule(static) num_threads(num_threads)
 #endif
     for (int64_t i = 0; i < n; ++i) {
+        if (i == 0) note_team(num_threads);  // the first thread's row
         int8_t* crow = codes + i * lmax;
         uint8_t* qrow = quals + i * lmax;
         int64_t len = lens[i];
@@ -62,20 +175,34 @@ void hpgq_pack(const uint8_t* buf, const int64_t* seq_starts,
     }
 }
 
-// Fused indexer: given newline offsets `nl` (4 per record), fill the
-// [nrec, 4] line start/end tables the RecordBlock layout wants.
-void hpgq_line_table(const int64_t* nl, int64_t nrec, int64_t* starts,
-                     int64_t* ends) {
+// The line tables of `nrec` FASTQ records whose text starts at buf[0],
+// from the offsets `nl` of their newlines (4 a record): a line starts
+// after the newline before it and ends at its own, moved back over a
+// '\r' before it.  Returns the first record whose sequence and quality
+// lengths differ, or whose header does not start with '@' or separator
+// with '+', else -1 (the reader raises on it).
+int64_t hpgq_record_table(const uint8_t* buf, const int64_t* nl,
+                          int64_t nrec, int64_t* starts, int64_t* ends) {
     int64_t prev = -1;
-    for (int64_t i = 0; i < nrec * 4; ++i) {
-        starts[i] = prev + 1;
-        ends[i] = nl[i];
-        prev = nl[i];
+    int64_t bad = -1;
+    for (int64_t r = 0; r < nrec; ++r) {
+        int64_t* s = starts + 4 * r;
+        int64_t* e = ends + 4 * r;
+        for (int k = 0; k < 4; ++k) {
+            const int64_t end = nl[4 * r + k];
+            s[k] = prev + 1;
+            e[k] = end - (end > 0 && buf[end - 1] == '\r');
+            prev = end;
+        }
+        if (bad < 0 && (e[1] - s[1] != e[3] - s[3] || buf[s[0]] != '@' ||
+                        buf[s[2]] != '+'))
+            bad = r;
     }
+    return bad;
 }
 
 // Multi-threaded newline scan: segments of `buf` are counted and filled in
-// parallel (memchr per segment), results written contiguously via a prefix
+// parallel (newlines() per segment), results written contiguously via a prefix
 // sum over per-segment counts.  Returns the total number of newlines, or
 // the NEGATED total (with nothing written) when it exceeds `cap` — the
 // caller then re-invokes with an exact-size buffer.
@@ -96,17 +223,8 @@ int64_t hpgq_find_newlines_mt(const uint8_t* buf, int64_t n, int64_t* nl,
 #pragma omp parallel for schedule(static) num_threads(nseg)
 #endif
     for (int s = 0; s < nseg; ++s) {
-        int64_t c = 0;
-        const uint8_t* p = buf + seg_lo[s];
-        const uint8_t* end = buf + seg_hi[s];
-        while (p < end) {
-            const uint8_t* hit =
-                static_cast<const uint8_t*>(memchr(p, '\n', end - p));
-            if (!hit) break;
-            ++c;
-            p = hit + 1;
-        }
-        counts[(size_t)s] = c;
+        if (s == 0) note_team(nseg);  // the first thread's segment
+        counts[(size_t)s] = newlines(buf, seg_lo[s], seg_hi[s], nullptr, 0);
     }
     std::vector<int64_t> offs((size_t)nseg + 1, 0);
     for (int s = 0; s < nseg; ++s) offs[(size_t)s + 1] = offs[(size_t)s] + counts[(size_t)s];
@@ -115,16 +233,9 @@ int64_t hpgq_find_newlines_mt(const uint8_t* buf, int64_t n, int64_t* nl,
 #pragma omp parallel for schedule(static) num_threads(nseg)
 #endif
     for (int s = 0; s < nseg; ++s) {
-        int64_t* out = nl + offs[(size_t)s];
-        const uint8_t* p = buf + seg_lo[s];
-        const uint8_t* end = buf + seg_hi[s];
-        while (p < end) {
-            const uint8_t* hit =
-                static_cast<const uint8_t*>(memchr(p, '\n', end - p));
-            if (!hit) break;
-            *out++ = hit - buf;
-            p = hit + 1;
-        }
+        if (s == 0) note_team(nseg);  // the first thread's segment
+        newlines(buf, seg_lo[s], seg_hi[s], nl + offs[(size_t)s],
+                 counts[(size_t)s]);
     }
     return offs[(size_t)nseg];
 }
@@ -146,6 +257,7 @@ void hpgq_pack_fused(const uint8_t* buf, const int64_t* seq_starts,
 #pragma omp parallel for schedule(static) num_threads(num_threads)
 #endif
     for (int64_t i = 0; i < nrows; ++i) {
+        if (i == 0) note_team(num_threads);  // the first thread's row
         uint8_t* row = out + i * W;
         if (i >= n) {
             memset(row, 0x55, L2);      // BASE_OTHER=5 in both nibbles
@@ -201,6 +313,7 @@ void hpgq_pack_bitwire(const uint8_t* buf, const int64_t* seq_starts,
 #pragma omp parallel for schedule(static) num_threads(num_threads)
 #endif
     for (int64_t i = 0; i < nrows; ++i) {
+        if (i == 0) note_team(num_threads);  // the first thread's row
         uint8_t* row = out + i * W;
         if (i >= n) {
             memset(row, 0, W);
@@ -269,6 +382,7 @@ int32_t hpgq_pack_bitwire6(const uint8_t* buf, const int64_t* seq_starts,
 #pragma omp parallel for schedule(static) num_threads(num_threads)
 #endif
     for (int64_t i = 0; i < nrows; ++i) {
+        if (i == 0) note_team(num_threads);  // the first thread's row
         if (misfit) continue;
         uint8_t* row = out + i * W;
         if (i >= n) {
@@ -353,6 +467,7 @@ int32_t hpgq_pack_bitwire2q(const uint8_t* buf, const int64_t* seq_starts,
 #pragma omp parallel for schedule(static) num_threads(num_threads)
 #endif
     for (int64_t i = 0; i < nrows; ++i) {
+        if (i == 0) note_team(num_threads);  // the first thread's row
         if (misfit) continue;
         uint8_t* row = out + i * W;
         if (i >= n) {
@@ -453,10 +568,10 @@ int64_t hpgq_pack_bitwire2c(const uint8_t* buf, const int64_t* seq_starts,
     const int64_t c2 = L / 4;  // 2L/8 bytes of base codes
     const int64_t q2 = L / 4;  // 2L/8 bytes of qual indices
     if (num_threads < 1) num_threads = 1;
-    // per-thread exception slices keep the single pass parallel; each
-    // thread owns a contiguous ascending row range, so concatenating the
-    // slices in thread order yields the globally row-major list the
-    // device scatter wants (sorted unique indices)
+    // T exception slices keep the single pass parallel; each slice owns
+    // a contiguous ascending row range, so concatenating the slices in
+    // order yields the globally row-major list the device scatter wants
+    // (sorted unique indices)
     int T = num_threads;
     if (T > 16) T = 16;
     if (nrows < T) T = (int)(nrows > 0 ? nrows : 1);
@@ -464,16 +579,12 @@ int64_t hpgq_pack_bitwire2c(const uint8_t* buf, const int64_t* seq_starts,
     const int64_t slice_cap = exc_cap / T;
     volatile int fail = 0;  // 1 = qual misfit, 2 = exception overflow
 #ifdef _OPENMP
-#pragma omp parallel num_threads(T)
+#pragma omp parallel for schedule(static, 1) num_threads(T)
 #endif
-    {
-#ifdef _OPENMP
-        const int t = omp_get_thread_num();
-#else
-        const int t = 0;
-#endif
-        // partition REAL rows over n (not nrows): the per-thread
-        // exception slices are sized for an even spread of reads, and
+    for (int t = 0; t < T; ++t) {  // every slice, whatever the team
+        if (t == 0) note_team(T);
+        // partition REAL rows over n (not nrows): the exception
+        // slices are sized for an even spread of reads, and
         // padded rows carry none — splitting by nrows concentrated all
         // reads in the first threads and overflowed their slices when
         // nrows >> n (caught by the 2u differential tests)
@@ -570,7 +681,7 @@ int64_t hpgq_pack_bitwire2c(const uint8_t* buf, const int64_t* seq_starts,
         counts[(size_t)t] = my_cnt;
     }
     if (fail) return fail == 1 ? -1 : -2;
-    // compact the per-thread slices (serial; slices are small and ordered)
+    // compact the slices (serial; slices are small and ordered)
     int64_t total = counts[0];
     for (int t = 1; t < T; ++t) {
         if (counts[(size_t)t]) {
@@ -613,14 +724,10 @@ int64_t hpgq_pack_bitwire2u(const uint8_t* buf, const int64_t* seq_starts,
     std::vector<uint64_t> s0((size_t)T, 0), s1((size_t)T, 0);
     volatile int fail = 0;
 #ifdef _OPENMP
-#pragma omp parallel num_threads(T)
+#pragma omp parallel for schedule(static, 1) num_threads(T)
 #endif
-    {
-#ifdef _OPENMP
-        const int t = omp_get_thread_num();
-#else
-        const int t = 0;
-#endif
+    for (int t = 0; t < T; ++t) {  // every slice, whatever the team
+        if (t == 0) note_team(T);
         const int64_t lo = n * t / T;
         const int64_t hi = n * (t + 1) / T;
         uint64_t m0 = 0, m1 = 0;
@@ -630,10 +737,10 @@ int64_t hpgq_pack_bitwire2u(const uint8_t* buf, const int64_t* seq_starts,
                 break;
             }
             const uint8_t* q = buf + q_starts[i];
-            for (int64_t j = 0; j < Lu; ++j) {
-                uint8_t v = q[j] & 0x7F;
-                uint64_t bit = 1ull << (v & 63);
-                if (v & 64) m1 |= bit; else m0 |= bit;
+            for (int64_t j = 0; j < Lu; ++j) {  // branch-free
+                const uint32_t v = q[j] & 0x7F;
+                m0 |= (uint64_t)(v < 64) << (v & 63);
+                m1 |= (uint64_t)(v >> 6) << (v & 63);
             }
             // early bail: a single slice exceeding 4 distinct quals
             // already sinks the block-wide union — without this, every
@@ -667,18 +774,15 @@ int64_t hpgq_pack_bitwire2u(const uint8_t* buf, const int64_t* seq_starts,
     memset(qmap, 0, sizeof(qmap));
     for (int m = 0; m < 4; ++m)
         qmap[pal[m]] = (uint8_t)(m < np ? m : np ? np - 1 : 0);
-    // pass 2: pack both planes + exceptions (per-thread slices, row order)
+    // pass 2: pack both planes + exceptions (T slices, row order)
+    const int64_t full = Lu & ~(int64_t)3;  // bases in whole groups of four
     std::vector<int64_t> counts((size_t)T, 0);
     const int64_t slice_cap = exc_cap / T;
 #ifdef _OPENMP
-#pragma omp parallel num_threads(T)
+#pragma omp parallel for schedule(static, 1) num_threads(T)
 #endif
-    {
-#ifdef _OPENMP
-        const int t = omp_get_thread_num();
-#else
-        const int t = 0;
-#endif
+    for (int t = 0; t < T; ++t) {  // every slice, whatever the team
+        if (t == 0) note_team(T);
         // real rows partition over n; padded rows (exception-free) over
         // the remainder — see the matching comment in hpgq_pack_bitwire2c
         const int64_t lo = n * t / T;
@@ -692,44 +796,61 @@ int64_t hpgq_pack_bitwire2u(const uint8_t* buf, const int64_t* seq_starts,
             uint8_t* row = out + i * W;
             const uint8_t* seq = buf + seq_starts[i];
             const uint8_t* q = buf + q_starts[i];
-            uint32_t reg = 0;
-            int bits = 0;
+            // four 2-bit fields a byte, the first in the low bits; a
+            // group of four bases inside the read takes the fast path
+            // unless one is N or other (code 4 or 5: bit 2 set)
             uint8_t* p = row;
-            for (int64_t j = 0; j < Lp; ++j) {
-                uint32_t c = 0;
-                if (j < Lu) {
-                    c = (uint32_t)(lut[seq[j]] & 7);
+            int64_t j = 0;
+            for (; j < full; j += 4) {
+                uint32_t c[4] = {(uint32_t)(lut[seq[j]] & 7),
+                                 (uint32_t)(lut[seq[j + 1]] & 7),
+                                 (uint32_t)(lut[seq[j + 2]] & 7),
+                                 (uint32_t)(lut[seq[j + 3]] & 7)};
+                if ((c[0] | c[1] | c[2] | c[3]) & 4) {
+                    for (int k = 0; k < 4; ++k) {
+                        if (c[k] < 4) continue;
+                        if (my_cnt >= slice_cap) {
+                            fail = 2;
+                            break;
+                        }
+                        my_exc[my_cnt++] = (int32_t)(
+                            (((i * Lp) + j + k) << 1) | (c[k] == 5));
+                        c[k] = 0;
+                    }
+                    if (fail) break;
+                }
+                *p++ = (uint8_t)(c[0] | c[1] << 2 | c[2] << 4 | c[3] << 6);
+            }
+            for (; j < Lp && !fail; j += 4) {  // the read's end, then pads
+                uint32_t b = 0;
+                for (int k = 0; k < 4; ++k) {
+                    if (j + k >= Lu) break;
+                    uint32_t c = (uint32_t)(lut[seq[j + k]] & 7);
                     if (c >= 4) {
                         if (my_cnt >= slice_cap) {
                             fail = 2;
                             break;
                         }
-                        my_exc[my_cnt++] =
-                            (int32_t)((((i * Lp) + j) << 1) | (c == 5));
+                        my_exc[my_cnt++] = (int32_t)(
+                            (((i * Lp) + j + k) << 1) | (c == 5));
                         c = 0;
                     }
+                    b |= c << (2 * k);
                 }
-                reg |= c << bits;
-                bits += 2;
-                if (bits >= 8) {
-                    *p++ = (uint8_t)(reg & 0xFF);
-                    reg >>= 8;
-                    bits -= 8;
-                }
+                *p++ = (uint8_t)b;
             }
             if (fail) break;
-            reg = 0;
-            bits = 0;
             p = row + plane;
-            for (int64_t j = 0; j < Lp; ++j) {
-                uint32_t v = j < Lu ? (uint32_t)qmap[q[j] & 0x7F] : 0u;
-                reg |= v << bits;
-                bits += 2;
-                if (bits >= 8) {
-                    *p++ = (uint8_t)(reg & 0xFF);
-                    reg >>= 8;
-                    bits -= 8;
-                }
+            for (j = 0; j < full; j += 4)
+                *p++ = (uint8_t)(qmap[q[j] & 0x7F] |
+                                 qmap[q[j + 1] & 0x7F] << 2 |
+                                 qmap[q[j + 2] & 0x7F] << 4 |
+                                 qmap[q[j + 3] & 0x7F] << 6);
+            for (; j < Lp; j += 4) {
+                uint32_t b = 0;
+                for (int k = 0; k < 4 && j + k < Lu; ++k)
+                    b |= (uint32_t)qmap[q[j + k] & 0x7F] << (2 * k);
+                *p++ = (uint8_t)b;
             }
         }
         counts[(size_t)t] = my_cnt;
@@ -761,6 +882,7 @@ void hpgq_pack_qnwire(const uint8_t* buf, const int64_t* seq_starts,
 #pragma omp parallel for schedule(static) num_threads(num_threads)
 #endif
     for (int64_t i = 0; i < nrows; ++i) {
+        if (i == 0) note_team(num_threads);  // the first thread's row
         uint8_t* row = out + i * W;
         if (i >= n) {
             memset(row, 0, W);
@@ -803,6 +925,6 @@ int64_t hpgq_concat_spans(const uint8_t* buf, const int64_t* starts,
     return total;
 }
 
-int hpgq_abi_version(void) { return 8; }
+int hpgq_abi_version(void) { return 10; }
 
 }  // extern "C"

@@ -27,14 +27,15 @@ import numpy as np
 
 from ..constants import BASE_A, BASE_C, BASE_G, BASE_N, BASE_OTHER, BASE_T
 
-# worker threads for the native packer (the CLI's --num-threads; the
-# reference's worker-pool size, src/stats_options.c:271).  0 = auto.
-_NUM_THREADS = 0
-
 
 def set_num_threads(n: int) -> None:
-    global _NUM_THREADS
-    _NUM_THREADS = max(0, int(n))
+    """Threads of each native pack and index call (the CLI's
+    --num-threads; the reference's worker-pool size,
+    src/stats_options.c:271); 0 = the plan of the host's cores
+    (:func:`hpgq_torch.io.native.plan`)."""
+    from . import native
+
+    native.set_num_threads(n)
 
 
 BASE_LUT = np.full(256, BASE_OTHER, dtype=np.int8)
@@ -105,7 +106,7 @@ def _pack_wire_dispatch(block, max_len: int, pad_reads_to: int,
     if n and native.available():
         return getattr(native, native_name)(
             block.arr, block.starts[:, 1], block.starts[:, 3],
-            block.seq_lens, L, nrows, num_threads=_NUM_THREADS,
+            block.seq_lens, L, nrows,
         )
     return np_wire_fn(*pack_block(block, max_len=L, pad_reads_to=nrows))
 
@@ -380,7 +381,7 @@ def try_pack_block_2u(block, pad_reads_to: int = 0):
     if native.available():
         out = native.pack_bitwire2u(
             block.arr, block.starts[:, 1], block.starts[:, 3],
-            lens, Lu, nrows, num_threads=_NUM_THREADS,
+            lens, Lu, nrows,
         )
     else:
         out = wire_bitpack2u_np(*pack_block(block, max_len=round_up(Lu, 8),
@@ -423,7 +424,7 @@ def try_pack_block_2c(block, max_len: int, pad_reads_to: int = 0):
     if n and native.available():
         return native.pack_bitwire2c(
             block.arr, block.starts[:, 1], block.starts[:, 3],
-            block.seq_lens, L, nrows, num_threads=_NUM_THREADS,
+            block.seq_lens, L, nrows,
         )
     return wire_bitpack2c_np(*pack_block(block, max_len=L,
                                          pad_reads_to=nrows))
@@ -451,7 +452,7 @@ def try_pack_block_palette(block, max_len: int, pad_reads_to: int = 0):
     if n and native.available():
         return native.pack_bitwire2q(
             block.arr, block.starts[:, 1], block.starts[:, 3],
-            block.seq_lens, L, nrows, num_threads=_NUM_THREADS,
+            block.seq_lens, L, nrows,
         )
     return wire_bitpack2q_np(*pack_block(block, max_len=L,
                                          pad_reads_to=nrows))
@@ -492,13 +493,13 @@ def pack_block_bitwire_adaptive(block, max_len: int,
         args = (block.arr, block.starts[:, 1], block.starts[:, 3],
                 block.seq_lens, L, nrows)
         if qpal:
-            out = native.pack_bitwire2q(*args, num_threads=_NUM_THREADS)
+            out = native.pack_bitwire2q(*args)
             if out is not None:
                 return out
-        out = native.pack_bitwire6(*args, num_threads=_NUM_THREADS)
+        out = native.pack_bitwire6(*args)
         if out is not None:
             return out
-        return native.pack_bitwire(*args, num_threads=_NUM_THREADS)
+        return native.pack_bitwire(*args)
     packed = pack_block(block, max_len=L, pad_reads_to=nrows)
     out = wire_bitpack2q_np(*packed) if qpal else None
     if out is None:
@@ -586,10 +587,10 @@ def pack_block_bitwire_tier(block, max_len: int, tier: int,
         args = (block.arr, block.starts[:, 1], block.starts[:, 3],
                 block.seq_lens, L, nrows)
         if tier == 0:
-            return native.pack_bitwire2q(*args, num_threads=_NUM_THREADS)
+            return native.pack_bitwire2q(*args)
         if tier == 1:
-            return native.pack_bitwire6(*args, num_threads=_NUM_THREADS)
-        return native.pack_bitwire(*args, num_threads=_NUM_THREADS)
+            return native.pack_bitwire6(*args)
+        return native.pack_bitwire(*args)
     packed = pack_block(block, max_len=L, pad_reads_to=nrows)
     if tier == 0:
         return wire_bitpack2q_np(*packed)
@@ -707,7 +708,7 @@ def pack_block(block, max_len: int = 0, pad_reads_to: int = 0):
     if n and native.available():
         codes, quals = native.pack_rows(
             block.arr, block.starts[:, 1], block.starts[:, 3], lens, lmax,
-            nrows, num_threads=_NUM_THREADS,
+            nrows,
         )
         if nrows > n:
             out_lens = np.concatenate([lens, np.zeros(nrows - n, dtype=np.int32)])

@@ -109,10 +109,12 @@ class CgrSession:
     def feed_block(self, block) -> None:
         self.fold_host(self.block_tables(block))
 
-    def feed_all(self, blocks, timers) -> None:
-        """Every block's tables, computed on the pool threads (blocks are
-        independent) and summed here in input order."""
-        for block, host in _iter_with(blocks, self.block_tables, timers):
+    def feed_all(self, blocks, timers, plan=None) -> None:
+        """Every block's tables, computed on the pool threads of the
+        reader's ``plan`` (blocks are independent) and summed here in
+        input order."""
+        for block, host in _iter_with(blocks, self.block_tables, timers,
+                                      plan=plan):
             _count(timers, block)
             with timers.stage("compute"):
                 self.fold_host(host)
@@ -168,7 +170,7 @@ def run_cgr(opts: CgrOptions, timers: Optional[StageTimers] = None,
         with FastqReader(path, batch_size=_reader_batch(opts, dev),
                          start_offset=offset, timers=timers) as rd:
             if not ck_path:
-                sess.feed_all(rd, timers)
+                sess.feed_all(rd, timers, rd.plan)
                 continue
             # a checkpoint holds the tables of every block up to its offset:
             # fold in order on this thread

@@ -48,6 +48,7 @@ from ..io.fastq import (
     FastqWriter,
     coalesce_blocks,
 )
+from ..io import native
 from ..io.packer import round_up
 from ..options import EditOptions, FilterOptions, StatsOptions
 from ..pipeline.prefetch import prefetched
@@ -113,20 +114,13 @@ def _coalesced(opts, reader, device):
     return coalesce_blocks(iter(reader), tgt)
 
 
-def _pack_workers() -> int:
-    """Transform-pool width (HPGQ_PACK_THREADS; 0/unset = auto)."""
-    n = int(os.environ.get("HPGQ_PACK_THREADS", "0") or 0)
-    if n > 0:
-        return n
-    return max(1, min(4, (os.cpu_count() or 2) - 1))
-
-
 def _read_shards() -> int:
-    """Concurrent byte-range readers (HPGQ_READ_SHARDS; 0/unset = auto)."""
+    """Concurrent byte-range readers (HPGQ_READ_SHARDS; 0/unset = auto:
+    two usable cores each, at most 4)."""
     n = int(os.environ.get("HPGQ_READ_SHARDS", "0") or 0)
     if n > 0:
         return n
-    return max(1, min(4, (os.cpu_count() or 2) // 2))
+    return max(1, min(4, native.usable_cores() // 2))
 
 
 def _count(timers, block) -> None:
@@ -143,32 +137,40 @@ def _tensors(x):
             yield from _tensors(a)
 
 
-def _device_batches(items, pack, dev, timers, depth: int = 0,
-                    workers: int = 0):
+def _device_batches(items, pack, dev, timers, depth: int = 0, plan=None):
     """(item, device args) with ``pack(item)`` (host numpy arrays) and the
-    host-to-device copy of the next items running in a thread pool while
-    the current step runs.  On CUDA the copy is a pinned ``non_blocking``
-    one on a side stream: the consumer's current stream waits on its
-    event, and the pinned buffers stay referenced until the consumer asks
-    for the next item, by which time its step is enqueued.  ``timers`` get
-    the ``pack`` and ``h2d`` stages on the thread that runs them and the
+    host-to-device copy of the next items running on the reader's plan of
+    the host's cores (:func:`hpgq_torch.io.native.plan`; a lone reader's
+    without one): ``plan.packers`` pool threads, each pack on a team of
+    ``plan.pack``, or the reader's thread where the plan has no pool.  On
+    CUDA the copy is a pinned ``non_blocking`` one on a side stream: the
+    consumer's current stream waits on its event, and the pinned buffers
+    stay referenced until the consumer asks for the next item, by which
+    time its step is enqueued.  ``timers`` get the ``pack`` and ``h2d``
+    stages on the thread that runs them, the count ``team-short`` and the
     consumer's wait split by what it waits on (:func:`prefetched`)."""
+    plan = plan or native.plan()
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def transform(item):
+        native.use_team(plan.pack)
         with timers.stage("pack"):
             packed = pack(item)
         if copy_stream is None:
             with timers.stage("h2d"):
-                return item, to_device(packed, dev), None, None
-        keep = []
-        with timers.stage("h2d"), torch.cuda.stream(copy_stream):
-            arrs = to_device(packed, dev, non_blocking=True, keep=keep)
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        return item, arrs, done, keep
+                out = item, to_device(packed, dev), None, None
+        else:
+            keep = []
+            with timers.stage("h2d"), torch.cuda.stream(copy_stream):
+                arrs = to_device(packed, dev, non_blocking=True, keep=keep,
+                                 threads=plan.intra_op)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            out = item, arrs, done, keep
+        native.count_team_short(timers)
+        return out
 
-    workers = workers or _pack_workers()
+    workers = max(1, plan.packers)
     for item, arrs, done, keep in prefetched(
             iter(items), depth=depth or (workers + 2), transform=transform,
             workers=workers, timers=timers):
@@ -196,10 +198,10 @@ def _iter_blocks(reader, timers, depth: int = 3):
 
 
 def _iter_packed(reader, sess, batch_reads: int, timers, depth: int = 0,
-                 workers: int = 0):
+                 plan=None):
     """(block, device args for ``sess.feed_packed``)."""
     it = _device_batches(reader, lambda b: sess.pack(b, batch_reads),
-                         sess.device, timers, depth, workers)
+                         sess.device, timers, depth, plan)
     while True:
         with timers.stage("read"):
             item = next(it, None)
@@ -242,23 +244,29 @@ def _iter_blocks_paired(r1, r2, timers):
         yield s1, s2
 
 
-def _iter_packed_paired(pairs, sess, timers):
+def _iter_packed_paired(pairs, sess, timers, plan=None):
     """(b1, b2, in1, in2): both mates packed and copied in the pool (the
     reads are counted by :func:`_iter_blocks_paired`)."""
     for (b1, b2), (in1, in2) in _device_batches(
-            pairs, lambda p: sess.pack_pair(*p), sess.device, timers):
+            pairs, lambda p: sess.pack_pair(*p), sess.device, timers,
+            plan=plan):
         yield b1, b2, in1, in2
 
 
-def _iter_with(items, fn, timers, depth: int = 0):
+def _iter_with(items, fn, timers, depth: int = 0, plan=None):
     """(item, fn(item)) with ``fn`` (the device verdict) running in the
-    pool, so the pack, copy and verdict of the next items overlap the
-    writes of this one; items come out in input order."""
-    workers = _pack_workers()
+    pool of the reader's plan (as :func:`_device_batches`), so the pack,
+    copy and verdict of the next items overlap the writes of this one;
+    items come out in input order."""
+    plan = plan or native.plan()
+    workers = max(1, plan.packers)
 
     def transform(item):
+        native.use_team(plan.pack)
         with timers.stage("compute"):
-            return item, fn(item)
+            out = item, fn(item)
+        native.count_team_short(timers)
+        return out
 
     return prefetched(iter(items), depth=depth or (workers + 2),
                       transform=transform, workers=workers)
@@ -344,9 +352,9 @@ def _run_stats_parallel(opts, timers, crit, br, nshards: int, device):
             with FastqReader(opts.in_filename,
                              batch_size=_reader_batch(opts, device),
                              start_offset=rng[0], end_offset=rng[1],
-                             timers=t) as rd:
+                             timers=t, shards=nshards, packers=0) as rd:
                 for _, arrs in _iter_packed(_coalesced(opts, rd, device),
-                                            sess, br, t, workers=1):
+                                            sess, br, t, plan=rd.plan):
                     with t.stage("compute"):
                         sess.feed_packed(*arrs)
             with t.stage("compute"), t.stage("fold"):
@@ -369,16 +377,18 @@ def _run_stats_parallel_paired(opts, timers, device):
     indices in both mates (``split_paired_ranges``): each shard thread runs
     the serial paired loop on its own CUDA stream, counters merge in shard
     order, one report per mate."""
+    nshards = _read_shards()
+
     def work(i, rp):
         local = dataclasses.replace(opts)
         local.input_range, local.input_range2 = rp
         t = StageTimers()
         with _stream_ctx(device):
-            return _stream_stats(local, t, device), t
+            return _stream_stats(local, t, device, nshards), t
 
     results, err = _in_threads(
         work, split_paired_ranges(opts.in_filename, opts.in_filename2,
-                                  _read_shards()),
+                                  nshards),
         "hpgq-torch-pshard")
     if err is not None:
         raise err
@@ -474,14 +484,15 @@ def run_stats(opts: StatsOptions, timers: Optional[StageTimers] = None,
     return counters
 
 
-def _stream_stats(opts, timers, dev):
-    """The counters of `stats` (a pair for paired input), no report."""
+def _stream_stats(opts, timers, dev, shards: int = 1):
+    """The counters of `stats` (a pair for paired input), no report;
+    ``shards``: the shard pipelines running at once, this one of them."""
     crit = opts.criteria if opts.filter_on else None
     br = _batch_reads(opts, dev)
     if opts.paired_end:
         if _output_parallel_eligible(opts, dev):
             return _run_stats_parallel_paired(opts, timers, dev)
-        return _run_stats_paired(opts, timers, crit, br, dev)
+        return _run_stats_paired(opts, timers, crit, br, dev, shards)
     if _output_parallel_eligible(opts, dev):
         return _run_stats_parallel(opts, timers, crit, br, _read_shards(),
                                    dev)
@@ -507,10 +518,10 @@ def _stream_stats(opts, timers, dev):
     rng = getattr(opts, "input_range", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
                      start_offset=max(start, rng[0]), end_offset=rng[1],
-                     timers=timers) as rd:
+                     timers=timers, shards=shards) as rd:
         for block, arrs in _iter_packed(
                 _coalesced(opts, rd, dev), sess, br, timers,
-                depth=getattr(opts, "batch_list_size", 0)):
+                depth=getattr(opts, "batch_list_size", 0), plan=rd.plan):
             with timers.stage("compute"):
                 sess.feed_packed(*arrs)
             nb += 1
@@ -527,7 +538,7 @@ def _stream_stats(opts, timers, dev):
     return counters
 
 
-def _run_stats_paired(opts, timers, crit, br, dev):
+def _run_stats_paired(opts, timers, crit, br, dev, shards: int = 1):
     """The serial paired branch of `stats` (``hpgq/pipeline/run.py:
     532-602``): both mates' steps per batch, the checkpoint key of
     ``hpgq``, and the pair tallies copied into both counters."""
@@ -553,15 +564,16 @@ def _run_stats_paired(opts, timers, crit, br, dev):
     rng2 = getattr(opts, "input_range2", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
                      start_offset=max(start1, rng1[0]), end_offset=rng1[1],
-                     timers=timers) as r1, \
+                     timers=timers, shards=shards, mates=2) as r1, \
             FastqReader(opts.in_filename2,
                         batch_size=_reader_batch(opts, dev),
                         start_offset=max(start2, rng2[0]),
-                        end_offset=rng2[1], timers=timers) as r2:
+                        end_offset=rng2[1], timers=timers,
+                        shards=shards, mates=2) as r2:
         for b1, b2, in1, in2 in _iter_packed_paired(
                 _iter_blocks_paired(_coalesced(opts, r1, dev),
                                     _coalesced(opts, r2, dev), timers),
-                sess, timers):
+                sess, timers, plan=r1.plan):
             with timers.stage("compute"):
                 sess.feed_pair_packed(in1, in2)
             nb += 1
@@ -611,9 +623,9 @@ def _pid_alive(pid: int) -> bool:
 def _run_output_parallel(opts, timers, runner, count_keys, device):
     """An output command over concurrent record-aligned shards (range
     pairs for paired input): each shard thread runs the serial pipeline
-    (``runner(opts, timers, device)``) into a private ``.pshardNNNN`` dir,
-    and the final files are the shard files concatenated in shard order,
-    byte-identical to a serial run."""
+    (``runner(opts, timers, device, shards)``) into a private
+    ``.pshardNNNN`` dir, and the final files are the shard files
+    concatenated in shard order, byte-identical to a serial run."""
     nshards = _read_shards()
     if opts.paired_end:
         ranges = split_paired_ranges(opts.in_filename, opts.in_filename2,
@@ -642,7 +654,7 @@ def _run_output_parallel(opts, timers, runner, count_keys, device):
         local.out_dirname = sd
         local.input_range, local.input_range2 = rng
         t = StageTimers()
-        return runner(local, t, device), t, sd
+        return runner(local, t, device, nshards), t, sd
 
     results, err = _in_threads(work, ranges, "hpgq-torch-oshard")
     if err is not None:
@@ -689,7 +701,7 @@ def run_filter(opts: FilterOptions, timers: Optional[StageTimers] = None,
         return _filter(opts, timers or StageTimers(), dev)
 
 
-def _filter(opts, timers, dev):
+def _filter(opts, timers, dev, shards: int = 1):
     if _output_parallel_eligible(opts, dev):
         return _run_output_parallel(opts, timers, _filter,
                                     ("num_passed", "num_failed"), dev)
@@ -698,7 +710,8 @@ def _filter(opts, timers, dev):
     br = _batch_reads(opts, dev)
     out = {"num_passed": 0, "num_failed": 0}
     if opts.paired_end:
-        return _run_filter_paired(opts, timers, crit, phred, br, dev, out)
+        return _run_filter_paired(opts, timers, crit, phred, br, dev, out,
+                                  shards)
 
     vfn = ShapeCachedFn(
         lambda c, q, l, v: verdicts(c, q, l, crit, phred) & v, br, dev,
@@ -713,13 +726,13 @@ def _filter(opts, timers, dev):
     rng = getattr(opts, "input_range", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
                      start_offset=max(start, rng[0]), end_offset=rng[1],
-                     timers=timers) as rd, \
+                     timers=timers, shards=shards) as rd, \
             FastqWriter(passed_path, append_at=sizes.get("passed")) as pw, \
             FastqWriter(failed_path, append_at=sizes.get("failed")) as fw, \
             AsyncSpanPump() as pump:
         for block, ok in _iter_with(_coalesced(opts, rd, dev), vfn, timers,
                                     depth=getattr(opts, "batch_list_size",
-                                                  0)):
+                                                  0), plan=rd.plan):
             _count(timers, block)
             with timers.stage("write"):
                 out["num_passed"] += block.write_selected(pw, ok, pump=pump)
@@ -733,7 +746,8 @@ def _filter(opts, timers, dev):
     return out
 
 
-def _run_filter_paired(opts, timers, crit, phred, br, dev, out):
+def _run_filter_paired(opts, timers, crit, phred, br, dev, out,
+                       shards: int = 1):
     """The paired branch of `filter` (``hpgq/pipeline/run.py:811-860``)."""
     pvfn = ShapeCachedPairFn(
         lambda c1, q1, l1, v1, c2, q2, l2, v2:
@@ -751,11 +765,12 @@ def _run_filter_paired(opts, timers, crit, phred, br, dev, out):
     rng2 = getattr(opts, "input_range2", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
                      start_offset=max(start1, rng1[0]), end_offset=rng1[1],
-                     timers=timers) as r1, \
+                     timers=timers, shards=shards, mates=2) as r1, \
             FastqReader(opts.in_filename2,
                         batch_size=_reader_batch(opts, dev),
                         start_offset=max(aux.get("offset2", 0), rng2[0]),
-                        end_offset=rng2[1], timers=timers) as r2, \
+                        end_offset=rng2[1], timers=timers,
+                        shards=shards, mates=2) as r2, \
             FastqWriter(paths["passed_1"],
                         append_at=sizes.get("passed_1")) as p1, \
             FastqWriter(paths["passed_2"],
@@ -769,7 +784,8 @@ def _run_filter_paired(opts, timers, crit, phred, br, dev, out):
                    "failed_2": f2}
         pairs = _iter_blocks_paired(_coalesced(opts, r1, dev),
                                     _coalesced(opts, r2, dev), timers)
-        for (b1, b2), both in _iter_with(pairs, lambda p: pvfn(*p), timers):
+        for (b1, b2), both in _iter_with(pairs, lambda p: pvfn(*p), timers,
+                                         plan=r1.plan):
             with timers.stage("write"):
                 out["num_passed"] += b1.write_selected(p1, both, pump=pump)
                 b2.write_selected(p2, both, pump=pump)
@@ -919,13 +935,13 @@ def run_edit(opts: EditOptions, timers: Optional[StageTimers] = None,
         return _edit(opts, timers or StageTimers(), dev)
 
 
-def _edit(opts, timers, dev):
+def _edit(opts, timers, dev, shards: int = 1):
     if _output_parallel_eligible(opts, dev):
         return _run_output_parallel(opts, timers, _edit, _EDIT_COUNTS, dev)
     br = _batch_reads(opts, dev)
     out = {k: 0 for k in _EDIT_COUNTS}
     if opts.paired_end:
-        return _run_edit_paired(opts, timers, br, dev, out)
+        return _run_edit_paired(opts, timers, br, dev, out, shards)
 
     efn = _make_edit_fn(opts, br, dev)
     names = getattr(opts, "out_names", None) or ("edit.fq",)
@@ -942,14 +958,14 @@ def _edit(opts, timers, dev):
     rng = getattr(opts, "input_range", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
                      start_offset=max(start, rng[0]), end_offset=rng[1],
-                     timers=timers) as rd, \
+                     timers=timers, shards=shards) as rd, \
             contextlib.ExitStack() as stack:
         writers = {k: stack.enter_context(FastqWriter(
             p, append_at=sizes.get(k))) for k, p in paths.items()}
         pump = stack.enter_context(AsyncSpanPump())
         for block, (lt, rt, ok) in _iter_with(
                 _coalesced(opts, rd, dev), efn, timers,
-                depth=getattr(opts, "batch_list_size", 0)):
+                depth=getattr(opts, "batch_list_size", 0), plan=rd.plan):
             _count(timers, block)
             with timers.stage("write"):
                 out["num_edited"] += _num_edited(lt, rt)
@@ -966,7 +982,7 @@ def _edit(opts, timers, dev):
     return out
 
 
-def _run_edit_paired(opts, timers, br, dev, out):
+def _run_edit_paired(opts, timers, br, dev, out, shards: int = 1):
     """The paired branch of `edit` (``hpgq/pipeline/run.py:1079-1152``).
     The writers open (truncating) only after both readers have opened, so
     a bad mate-2 path leaves the previous run's outputs as they were."""
@@ -983,11 +999,12 @@ def _run_edit_paired(opts, timers, br, dev, out):
     rng2 = getattr(opts, "input_range2", None) or (0, None)
     with FastqReader(opts.in_filename, batch_size=_reader_batch(opts, dev),
                      start_offset=max(start1, rng1[0]), end_offset=rng1[1],
-                     timers=timers) as r1, \
+                     timers=timers, shards=shards, mates=2) as r1, \
             FastqReader(opts.in_filename2,
                         batch_size=_reader_batch(opts, dev),
                         start_offset=max(aux.get("offset2", 0), rng2[0]),
-                        end_offset=rng2[1], timers=timers) as r2, \
+                        end_offset=rng2[1], timers=timers,
+                        shards=shards, mates=2) as r2, \
             contextlib.ExitStack() as stack:
         w = {k: stack.enter_context(FastqWriter(p, append_at=sizes.get(k)))
              for k, p in paths.items()}
@@ -996,7 +1013,7 @@ def _run_edit_paired(opts, timers, br, dev, out):
         pairs = _iter_blocks_paired(_coalesced(opts, r1, dev),
                                     _coalesced(opts, r2, dev), timers)
         for (b1, b2), (lt1, rt1, lt2, rt2, both) in _iter_with(
-                pairs, lambda p: pefn(*p), timers):
+                pairs, lambda p: pefn(*p), timers, plan=r1.plan):
             with timers.stage("write"):
                 out["num_edited"] += _num_edited(lt1, rt1) + _num_edited(
                     lt2, rt2)

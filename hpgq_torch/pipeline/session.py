@@ -37,6 +37,7 @@ import torch
 
 from ..core.counters import StatsCounters
 from ..device import resolve_device
+from ..io import native
 from ..io.fastq import RecordBlock
 from ..io.packer import (
     bucket_rows,
@@ -324,19 +325,22 @@ class PairedStatsSession:
 
 
 def to_device(packed: tuple, device, non_blocking: bool = False,
-              keep: list = None) -> tuple:
+              keep: list = None, threads: int = 0) -> tuple:
     """Move a :meth:`StatsSession.pack` result to ``device`` as tensors
     (the tags of a 2u tuple and of a long block's parts, and the 2u tuple's
     ``n_valid`` and ``Lu``, stay host values).  For CUDA
     the host arrays go through pinned buffers, which are appended to
-    ``keep`` when given, so a caller can hold them until the copy is done."""
+    ``keep`` when given, so a caller can hold them until the copy is done.
+    An array reaches its pinned buffer on a native team of ``threads``
+    (0: the calling thread's planned team), never on torch's own."""
     def put(a):
         t = torch.from_numpy(a)
         if device.type == "cuda":
-            t = t.pin_memory()
+            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            native.copy_into(pinned.numpy(), a, threads)
             if keep is not None:
-                keep.append(t)
-            t = t.to(device, non_blocking=non_blocking)
+                keep.append(pinned)
+            t = pinned.to(device, non_blocking=non_blocking)
         return t
 
     def move(x):

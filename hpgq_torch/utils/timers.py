@@ -31,8 +31,11 @@ Besides the stages, counts: integers summed under the same lock
 decoder that inflated it (``inflate-native-bytes``, or
 ``inflate-zlib-bytes`` where the native library is not built), or a
 stats session's growths (``grow``) and the bytes of its long-read blocks
-(``long-bytes``, of them ``long-pad-bytes`` past the reads' ends); ``--t``
-prints them after the stages."""
+(``long-bytes``, of them ``long-pad-bytes`` past the reads' ends), or the
+native calls whose OpenMP team came up smaller than the plan of the host's
+cores asked (``team-short``, counted by the threads that index and pack);
+``--t`` prints them after the stages, then the notes: each reader's plan
+of the host's cores (:func:`hpgq_torch.io.native.plan`)."""
 
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ class StageTimers:
     def __init__(self):
         self.totals = {}
         self.counts = {}  # name -> an integer summed over the pass
+        self.notes = []  # lines --t prints last (each reader's plan)
         self.num_batches = 0
         self.total_reads = 0
         self.total_bytes = 0
@@ -93,6 +97,11 @@ class StageTimers:
         with self._lock:
             self.counts[name] = self.counts.get(name, 0) + int(n)
 
+    def note(self, text: str) -> None:
+        """Keep a line for the report (from any thread)."""
+        with self._lock:
+            self.notes.append(text)
+
     def total(self) -> float:
         return time.perf_counter() - self._t0
 
@@ -106,6 +115,7 @@ class StageTimers:
             self.counts[k] = self.counts.get(k, 0) + v
         for k, v in other.first.items():
             self.first[k] = min(v, self.first.get(k, v))
+        self.notes.extend(other.notes)
         self.num_batches += other.num_batches
         self.total_reads += other.total_reads
         self.total_bytes += other.total_bytes
@@ -139,6 +149,8 @@ class StageTimers:
                 )
         for name in sorted(self.counts):
             print("count %-21s: \t%10i" % (name, self.counts[name]), file=out)
+        for text in self.notes:
+            print(text, file=out)
         if self.total_reads and total > 0:
             print("", file=out)
             print(
@@ -155,6 +167,9 @@ class _NoTimers:
         return nullcontext()
 
     def count(self, name: str, n: int) -> None:
+        pass
+
+    def note(self, text: str) -> None:
         pass
 
 

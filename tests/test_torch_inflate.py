@@ -174,9 +174,9 @@ def _read_sizes(mode: str):
 
 
 def _open(path: str, reader: str = "sequential") -> inflate.GzipReader:
-    return inflate.GzipReader(inflate.get_lib(), path, _parallel=(
-        (0, 0) if reader == "sequential" else PARALLEL if reader == "parallel"
-        else reader))
+    workers, chunk = ((0, 0) if reader == "sequential" else PARALLEL
+                      if reader == "parallel" else reader)
+    return inflate.GzipReader(inflate.get_lib(), path, workers, chunk)
 
 
 def _read(path: str, mode: str = "piece", reader: str = "sequential"):
@@ -569,11 +569,12 @@ def test_crc32_combine(lib):
 
 @pytest.mark.parametrize("size,cores,ranks,want", [
     (8 << 20, 8, None, 4), ((8 << 20) - 1, 8, None, 0), (8 << 20, 3, None, 0),
-    (8 << 20, 4, None, 2), (8 << 20, 8, "4", 2), (8 << 20, 16, "2", 4),
+    (8 << 20, 4, None, 2), (8 << 20, 8, "4", 0), (8 << 20, 16, "2", 4),
     (8 << 20, 32, "x", 16)])
 def test_workers_rule(tmp_path, monkeypatch, size, cores, ranks, want):
-    """Two chunks and four usable cores engage the parallel reader, with
-    half the cores shared among the host's local ranks, at least 2."""
+    """Two chunks and four usable cores (the process's share of the host's
+    among its local ranks) engage the parallel reader, with half of them:
+    the plan's gzip pool."""
     path = tmp_path / "f.gz"
     with open(path, "wb") as f:
         f.truncate(size)
@@ -609,7 +610,7 @@ def test_reader_blocks_equal_plain(lib, tmp_path, monkeypatch):
     with FastqReader(gz, batch_size=500) as rd:
         assert isinstance(rd._fh, ReadaheadFile)
         assert isinstance(rd._fh._fh, inflate.GzipReader)
-    resume = want[3][1]
+    resume = want[3][0]
     assert _blocks(gz, start_offset=resume) == _blocks(plain, start_offset=resume)
 
 
@@ -629,22 +630,41 @@ def test_reader_blocks_equal_plain_parallel(lib, tmp_path, monkeypatch):
     assert _blocks(gz, timers=t) == want
     with FastqReader(gz, batch_size=500) as rd:
         assert rd._fh._fh.parallel
-    resume = want[3][1]
+    resume = want[3][0]
     assert _blocks(gz, start_offset=resume) == _blocks(plain, start_offset=resume)
     assert t.counts["inflate-native-bytes"] == len(text)
-    assert set(t.counts) == {"inflate-native-bytes", *inflate.COUNTS}
+    assert set(t.counts) == {"inflate-native-bytes", "team-short",
+                             *inflate.COUNTS}
+    assert t.counts["team-short"] == 0
     assert t.counts["inflate-chunks"] > 0 and t.counts["inflate-markers"] > 0
     assert t.counts["inflate-restarts"] == 0
 
 
+@pytest.mark.parametrize("chunk", [150, 40_000])
+@pytest.mark.parametrize("crlf", [False, True], ids=["lf", "crlf"])
+def test_reader_blocks_joined(lib, tmp_path, monkeypatch, chunk, crlf):
+    """The partial record each piece carries is joined to the next piece
+    (natively), over several pieces where a record is longer than one:
+    the blocks of a plain file."""
+    monkeypatch.setattr(fastq, "_CHUNK", chunk)
+    text = _generator_member(reads=2500)[1]
+    if crlf:
+        text = text.replace(b"\n", b"\r\n")
+    plain = _put(tmp_path, text, "r.fq")
+    gz = _put(tmp_path, _member(text, 1), "r.fq.gz")
+    want = _blocks(plain)
+    assert _blocks(gz) == want and len(want) > 10
+
+
 def test_counts_native_bytes(lib, tmp_path):
     """The stage timers count the text the native decoder inflated, and no
-    zlib bytes; --t's report prints the count."""
+    zlib bytes, beside the index's short teams (none); --t's report prints
+    the count."""
     data, text = _valid_inputs()["generator"]
     t = StageTimers()
     with FastqReader(_put(tmp_path, data), batch_size=500, timers=t) as rd:
         assert sum(b.num_reads for b in rd) == 1200
-    assert t.counts == {"inflate-native-bytes": len(text)}
+    assert t.counts == {"inflate-native-bytes": len(text), "team-short": 0}
     assert t.totals["inflate"] > 0
     out = io.StringIO()
     t.report(out)
@@ -652,7 +672,8 @@ def test_counts_native_bytes(lib, tmp_path):
     merged = StageTimers()
     merged.merge_from(t)
     merged.merge_from(t)
-    assert merged.counts == {"inflate-native-bytes": 2 * len(text)}
+    assert merged.counts == {"inflate-native-bytes": 2 * len(text),
+                             "team-short": 0}
 
 
 def test_counts_zlib_bytes_without_native(lib, tmp_path):

@@ -150,17 +150,19 @@ def test_reader_native_vs_numpy(tmp_path):
         np.testing.assert_array_equal(e1, e2)
 
 
-def test_find_newlines_mt_paths():
-    """The multi-threaded scan (>=2MB buffers) matches numpy, including the
-    capacity-retry path and pathological all-newline input."""
+@pytest.mark.parametrize("threads", [0, 1, 3])
+def test_find_newlines_mt_paths(threads):
+    """The scan of >=2MB buffers (one pass on one thread, else counted and
+    filled by segments) matches numpy, including the capacity-retry path,
+    pathological all-newline input and a length no multiple of 32."""
     rng = np.random.default_rng(3)
-    big = rng.integers(0, 256, size=3 << 21, dtype=np.uint8)
-    got = native.find_newlines(big)
+    big = rng.integers(0, 256, size=(3 << 21) + 13, dtype=np.uint8)
+    got = native.find_newlines(big, threads)
     want = np.flatnonzero(big == 0x0A)
     np.testing.assert_array_equal(got, want)
 
     dense = np.full(1 << 22, 0x0A, dtype=np.uint8)  # every byte a newline
-    got = native.find_newlines(dense)
+    got = native.find_newlines(dense, threads)
     assert got.shape[0] == dense.shape[0]
     np.testing.assert_array_equal(got, np.arange(dense.shape[0]))
 
@@ -316,3 +318,155 @@ def test_loader(tmp_path, monkeypatch, caplog, name, case):
             "packer": "packer", "inflate": "inflate",
             "rows": "report rows"}[name]
         assert (logged in caplog.text) == (case == "build fails")
+
+
+# The packers under a runtime that grants fewer threads than asked: each
+# native packer run in a subprocess under OMP_THREAD_LIMIT=2, asked for 8
+# threads and for 1, on reads with padded rows (n < nrows) and many N and
+# other bases (exceptions of the 2u and 2c wires).
+_SHORT_TEAM = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from hpgq_torch.io import native
+
+rng = np.random.default_rng(20)
+n, L = 3000, 96
+lib = native.get_lib()
+assert lib is not None
+
+
+def reads(kind):
+    quals = {"2u": b"#-8F", "2c": b"#-8F", "2q": b"#-8F",
+             "6bit": bytes(range(40, 100)), "7bit": bytes(range(33, 127)),
+             "plain": bytes(range(33, 127)), "qn": bytes(range(33, 127))}[kind]
+    lens = (np.full(n, L) if kind == "2u" else rng.integers(1, L + 1, n))
+    buf, seq_starts, q_starts = bytearray(), [], []
+    for ln in lens:
+        seq = rng.choice(np.frombuffer(b"ACGT" * 16 + b"NX", np.uint8), ln)
+        seq_starts.append(len(buf))
+        buf += seq.tobytes()
+        q_starts.append(len(buf))
+        pal = rng.choice(np.frombuffer(quals, np.uint8), 4, replace=False)
+        buf += rng.choice(pal if kind in ("2c", "2q") else
+                          np.frombuffer(quals, np.uint8), ln).tobytes()
+    return (np.frombuffer(bytes(buf), np.uint8), np.array(seq_starts),
+            np.array(q_starts), lens.astype(np.int32))
+
+
+kind = sys.argv[2]
+fn = {"2u": native.pack_bitwire2u, "2c": native.pack_bitwire2c,
+      "2q": native.pack_bitwire2q, "6bit": native.pack_bitwire6,
+      "7bit": native.pack_bitwire, "plain": native.pack_rows,
+      "qn": native.pack_qnwire}[kind]
+args = reads(kind) + (L, n + 700)
+one = fn(*args, num_threads=1)
+assert lib.hpgq_team_short() == 0
+eight = fn(*args, num_threads=8)
+short = lib.hpgq_team_short()
+out = {}
+for name, got in (("one", one), ("eight", eight)):
+    assert got is not None, (kind, name)
+    parts = got if isinstance(got, tuple) else (got,)
+    for i, a in enumerate(parts):
+        out["%s%d" % (name, i)] = np.asarray(a)
+np.savez(sys.argv[3], short=short, **out)
+"""
+
+
+@pytest.mark.parametrize("kind", ["2u", "2c", "2q", "6bit", "7bit", "plain",
+                                  "qn"])
+def test_packer_short_team(tmp_path, kind):
+    """Asked for 8 threads where the runtime grants 2, every native packer
+    gives its 1-thread buffers and exception list, byte for byte, and counts
+    the short team (``team-short``)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "out.npz")
+    env = dict(os.environ, OMP_THREAD_LIMIT="2")
+    r = subprocess.run([sys.executable, "-c", _SHORT_TEAM, root, kind, out],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    with np.load(out) as z:
+        assert int(z["short"]) >= 1
+        ones = sorted(k for k in z.files if k.startswith("one"))
+        assert ones and len(ones) == len(z.files) // 2
+        for k in ones:
+            np.testing.assert_array_equal(z["eight" + k[3:]], z[k], err_msg=k)
+
+
+_RECORDS = {
+    "lf": b"@r0\nACGT\n+\nIIII\n@r1\nAC\n+\nII\n",
+    "crlf": b"@r0\r\nACGT\r\n+\r\nIIII\r\n@r1\r\nAC\r\n+r1\r\nII\r\n",
+    "mixed": b"@r0\r\nACGT\n+\r\nIIII\n@r1\n\r\n+\n\n@\n\n+\n\n",
+    "cr_in_seq": b"@r0\nAC\rGT\n+\nIIIII\n@r1\nA\r\r\n+\nII\r\n",
+    "qual_short": b"@r0\nACGT\n+\nIIII\n@r1\nACGTACGT\n+\nIII\n",
+    "bad_header": b"@r0\nACGT\n+\nIIII\nr1\nACGT\n+\nIIII\n",
+    "bad_sep": b"@r0\r\nACGT\r\n+\r\nIIII\r\n@r1\r\nACGT\r\n-\r\nIIII\r\n",
+    "first_empty": b"\nACGT\n+\nIIII\n",
+}
+
+
+@pytest.mark.parametrize("name", sorted(_RECORDS))
+def test_record_table_matches_numpy(name):
+    """The native record table (line tables, '\\r' before a newline
+    dropped, the first desynced record) equals the numpy fallback's."""
+    from hpgq_torch.io import fastq
+
+    data = _RECORDS[name]
+    nl = native.find_newlines(data).copy()
+    nrec = len(nl) // 4
+    starts, ends, bad = native.record_table(data, nl, nrec)
+    want_s, want_e = fastq._index_lines(data, nl, nrec)
+    want_bad = fastq._first_bad(data, want_s, want_e)
+    np.testing.assert_array_equal(starts, want_s)
+    np.testing.assert_array_equal(ends, want_e)
+    assert bad == want_bad
+    assert (bad >= 0) == (name in ("qual_short", "bad_header", "bad_sep",
+                                   "first_empty"))
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("sizes", [(0, 5), (7, 0), (300, 3 << 20)])
+def test_join(threads, sizes):
+    """The reader's tail joined to the next chunk by native copies is
+    ``head + tail``, a new bytes object."""
+    rng = np.random.default_rng(sum(sizes))
+    head, tail = (rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                  for n in sizes)
+    got = native.join(head, tail, threads)
+    assert isinstance(got, bytes) and got == head + tail
+
+
+@pytest.mark.parametrize("length", [1, 3, 4, 6, 37, 100, 101])
+def test_pack_2u_matches_numpy(tmp_path, length):
+    """The native 2u wire (four bases a byte, a group with an N or other
+    base on the exception path, the read's last partial group and the
+    pad) equals the numpy fallback's buffer, exceptions and palette, and
+    ``hpgq``'s packer's on the same blocks, byte for byte."""
+    import hpgq.io.fastq as h_fastq
+    import hpgq.io.packer as h_packer
+    from hpgq_torch.io.packer import try_pack_block_2u
+
+    path = tmp_path / "r.fq"
+    make_fastq(str(path), 2000, min_len=length, max_len=length, n_prob=0.05,
+               seed=length, qual_bins=(2, 12, 23, 37))
+    with FastqReader(str(path), batch_size=700) as rd, \
+            h_fastq.FastqReader(str(path), batch_size=700) as hd:
+        for block, hblock in zip(rd, hd):
+            got = try_pack_block_2u(block, pad_reads_to=1024)
+            saved = native.available
+            native.available = lambda: False
+            try:
+                want = try_pack_block_2u(block, pad_reads_to=1024)
+            finally:
+                native.available = saved
+            ref = h_packer.try_pack_block_2u(hblock, pad_reads_to=1024)
+            assert got is not None and want is not None and ref is not None
+            for g, w, r in zip(got, want, ref):
+                np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+                g, r = np.asarray(g), np.asarray(r)
+                assert g.dtype == r.dtype and g.shape == r.shape
+                assert g.tobytes() == r.tobytes()

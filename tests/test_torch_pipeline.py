@@ -222,7 +222,8 @@ class _Killed(Exception):
 
 class _CrashAfter:
     """Stand-in for ``reader`` (the FastqReader of the module it replaces
-    one in) that dies after ``n`` blocks (a killed run)."""
+    one in) that dies after ``n`` blocks (a killed run); its other
+    attributes (the port's reader's ``plan``) are the reader's."""
 
     def __init__(self, n, reader=FastqReader):
         self.n = n
@@ -245,6 +246,9 @@ class _CrashAfter:
                     if i == n:
                         raise _Killed("simulated kill")
                     yield block
+
+            def __getattr__(self, name):
+                return getattr(reader, name)
 
         return Wrapped()
 

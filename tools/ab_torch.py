@@ -89,6 +89,7 @@ from hpgq_torch.device import (  # noqa: E402
     gpu_name_and_power_limit,
     resolve_device,
 )
+from hpgq_torch.io import native  # noqa: E402
 from hpgq_torch.io.fastq import FastqReader  # noqa: E402
 from hpgq_torch.io.packer import (  # noqa: E402
     round_up,
@@ -168,14 +169,12 @@ def bgzf_corpus(plain):
 def single_cpu_pack():
     """The denominator is one CPU: the native packer's thread pool must
     not widen the oracle's pack (``bench.py:121-134``)."""
-    from hpgq_torch.io import packer
-
-    saved = packer._NUM_THREADS
-    packer.set_num_threads(1)
+    saved = native.num_threads()
+    native.set_num_threads(1)
     try:
         yield
     finally:
-        packer._NUM_THREADS = saved
+        native.set_num_threads(saved)
 
 
 def _packed_blocks(path, batch_size):
@@ -642,7 +641,7 @@ def knobs(cmd, paths, dev, settings):
     seen.update(read_shards=pipeline._read_shards(),
                 sharded=pipeline._output_parallel_eligible(opts, dev),
                 coalesce_reads=pipeline._coalesce_reads(opts, dev),
-                pack_threads=pipeline._pack_workers())
+                pack_threads=max(1, native.plan().packers))
     return seen
 
 

@@ -86,7 +86,7 @@ def primed(text: bytes, level: int, threads: int) -> bytes:
 
 def read_all(lib, path: str, parallel) -> "tuple[float, bytes, dict]":
     t = time.perf_counter()
-    r = inflate.GzipReader(lib, path, _parallel=parallel)
+    r = inflate.GzipReader(lib, path, *parallel)
     parts = []
     while True:
         b = r.read(16 << 20)
