@@ -215,25 +215,34 @@ def _iter_blocks_paired(r1, r2, timers):
     """Lockstep mate blocks, re-sliced to common record counts: the mate
     files hold the same number of records in different byte layouts, so
     their readers' blocks disagree in size; every yielded pair covers the
-    same record range.  Raises on unequal record counts."""
+    same record range.  Raises on unequal record counts.
+
+    It runs on the thread that pulls the pairs (a pack pool's
+    ``hpgq-reader``): its wait for each mate's next block is the stage
+    ``wait-mate-1`` or ``wait-mate-2``, and a pair cut short of one mate's
+    block end, because the other's block ended first, counts
+    ``pair-cuts``."""
     i1 = prefetched(iter(r1), depth=2)
     i2 = prefetched(iter(r2), depth=2)
     b1 = b2 = None
     p1 = p2 = 0
     while True:
-        with timers.stage("read"):
-            if b1 is None or p1 >= b1.num_reads:
+        if b1 is None or p1 >= b1.num_reads:
+            with timers.stage("wait-mate-1"):
                 b1 = next(i1, None)
-                p1 = 0
-            if b2 is None or p2 >= b2.num_reads:
+            p1 = 0
+        if b2 is None or p2 >= b2.num_reads:
+            with timers.stage("wait-mate-2"):
                 b2 = next(i2, None)
-                p2 = 0
+            p2 = 0
         if b1 is None and b2 is None:
             return
         if b1 is None or b2 is None:
             raise ValueError("paired-end inputs have mismatched record "
                              "counts; both mates must pair up 1:1")
-        n = min(b1.num_reads - p1, b2.num_reads - p2)
+        left1, left2 = b1.num_reads - p1, b2.num_reads - p2
+        n = min(left1, left2)
+        timers.count("pair-cuts", left1 != left2)
         s1 = b1.slice(p1, p1 + n)
         s2 = b2.slice(p2, p2 + n)
         p1 += n
@@ -246,10 +255,16 @@ def _iter_blocks_paired(r1, r2, timers):
 
 def _iter_packed_paired(pairs, sess, timers, plan=None):
     """(b1, b2, in1, in2): both mates packed and copied in the pool (the
-    reads are counted by :func:`_iter_blocks_paired`)."""
-    for (b1, b2), (in1, in2) in _device_batches(
-            pairs, lambda p: sess.pack_pair(*p), sess.device, timers,
-            plan=plan):
+    reads are counted by :func:`_iter_blocks_paired`); the ``read`` stage
+    is the consumer's wait for the next pair, as in :func:`_iter_packed`."""
+    it = _device_batches(pairs, lambda p: sess.pack_pair(*p), sess.device,
+                         timers, plan=plan)
+    while True:
+        with timers.stage("read"):
+            item = next(it, None)
+        if item is None:
+            return
+        (b1, b2), (in1, in2) = item
         yield b1, b2, in1, in2
 
 

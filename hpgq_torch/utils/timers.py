@@ -13,6 +13,9 @@ does each piece of work:
 * ``read``, the consumer's wait for its next block, which on a pack pool
   splits into ``wait-reader`` (the reader had not handed the block over)
   and ``wait-pack`` (its pack and copy were not done);
+* ``wait-mate-1`` and ``wait-mate-2``, on paired input the wait of the
+  thread that pairs the mates' blocks (a pack pool's ``hpgq-reader``)
+  for each mate's next block;
 * ``compute`` (the consumer feeding the device step) with ``fold`` (the
   device's partials folded into the host counters) and ``grow`` (a stats
   session's growth to wider reads: the fold and a wider accumulator)
@@ -33,7 +36,9 @@ decoder that inflated it (``inflate-native-bytes``, or
 stats session's growths (``grow``) and the bytes of its long-read blocks
 (``long-bytes``, of them ``long-pad-bytes`` past the reads' ends), or the
 native calls whose OpenMP team came up smaller than the plan of the host's
-cores asked (``team-short``, counted by the threads that index and pack);
+cores asked (``team-short``, counted by the threads that index and pack),
+or the pairs of mate blocks cut short because one mate's block ended
+before the other's (``pair-cuts``);
 ``--t`` prints them after the stages, then the notes: each reader's plan
 of the host's cores (:func:`hpgq_torch.io.native.plan`)."""
 
@@ -46,9 +51,9 @@ from contextlib import contextmanager, nullcontext
 
 # the stages of --t's report in pipeline order, then any other in the
 # order first entered
-ORDER = ("inflate", "index", "pack", "h2d", "read", "wait-reader",
-         "wait-pack", "compute", "fold", "grow", "write", "checkpoint",
-         "reporting")
+ORDER = ("inflate", "index", "pack", "h2d", "read", "wait-mate-1",
+         "wait-mate-2", "wait-reader", "wait-pack", "compute", "fold",
+         "grow", "write", "checkpoint", "reporting")
 
 
 def _profiling() -> bool:

@@ -96,6 +96,19 @@ def test_plan_of_the_gzip_cell(host):
                       "intra-op 1: 8 threads of 8 cores")
 
 
+def test_plan_of_the_paired_gzip_cell(host):
+    """The two gzip readers of a pair on 8 cores share one 4-thread decode
+    pool; each indexes on one thread and two one-thread pack workers pack
+    the pairs: 8 threads, within the cores."""
+    host(8)
+    p = native.plan("gzip", mates=2)
+    assert (p.pools, p.decode, p.mates, p.index, p.packers, p.pack,
+            p.intra_op) == (1, 4, 2, 1, 2, 1, 1)
+    assert p.threads() == 8 <= p.cores
+    assert str(p) == ("decode 1 x 4, 1 x (index 2 x 1, pack 2 x 1), "
+                      "intra-op 1: 8 threads of 8 cores")
+
+
 @pytest.mark.parametrize("shards,mates,want", [
     (1, 1, "decode 1 x 4, 1 x (index 1 x 1, pack 3 x 1), intra-op 1: "
            "8 threads of 8 cores"),
