@@ -706,6 +706,31 @@ def ont_block(seed, shape=ONT_BLOCK, n=1250, longest=126106):
     return codes, quals, lens, np.arange(B) < n
 
 
+def ragged_block(codes, quals, lens, valid):
+    """A block's valid rows as the session sends a long block: its ragged
+    6-bit wire, the rows longest first (``native.pack_ragged6`` over the
+    rows' bases and qualities as text), and those rows in that order as
+    ``(codes, quals, lens, valid)`` numpy for the plain twin; ``(buf,
+    rows, L, arrays)``."""
+    from hpgq_torch.io import native
+
+    keep = np.flatnonzero(valid)
+    order = keep[np.argsort(-lens[keep], kind="stable")]
+    letters = np.frombuffer(b"ACGTNX??", np.uint8)
+    pieces, starts, at = [], [], 0
+    for r in order:
+        n = int(lens[r])
+        pieces += [letters[codes[r, :n] & 7], quals[r, :n]]
+        starts.append((at, at + n))
+        at += 2 * n
+    starts = np.array(starts, dtype=np.int64).reshape(-1, 2)
+    buf = native.pack_ragged6(np.concatenate(pieces), starts[:, 0],
+                              starts[:, 1], lens[order])
+    check(buf is not None, "the block does not fit the ragged 6-bit wire")
+    rows = (codes[order], quals[order], lens[order], valid[order])
+    return buf, len(order), int(lens.max()), rows
+
+
 def compare_k2(t, lcap, settings, label, kmers_settings=(False, True)):
     """K2 (through ``make_batch_partials``) against the plain twin on the
     tensors ``t`` under each filter setting, k-mers off and on (or as
@@ -830,6 +855,30 @@ def phase_k2(dev):
     check(0 < n_pass < int(ont_t[3].sum()),
           "the Nanopore cell's block: %d of %d reads passed its filter"
           % (n_pass, int(ont_t[3].sum())))
+    # the same block as the session sends it: one ragged 6-bit wire, K2's
+    # ragged entry against the plain twin on its rows, filter off and on
+    from hpgq_torch.kernels.stats_cuda import (
+        batch_partials_cuda_ragged,
+        prepare_k2_ragged,
+    )
+
+    buf, rows, Lr, rag_rows = ragged_block(*ont_block(797))
+    rag_buf = torch.from_numpy(buf).to(dev)
+    rag_t = [torch.from_numpy(a).to(dev) for a in rag_rows]
+    for name, crit in (("no filter", None),
+                       ("its filter", ont["the Nanopore cell's"])):
+        reset_counts()
+        k = batch_partials_cuda_ragged(rag_buf, rows, Lr, ONT_BLOCK[1], 33,
+                                       crit)
+        p = fused_partials(*rag_t, ONT_BLOCK[1], 33, crit)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare_partials(
+            k, p, "the Nanopore cell's block as a ragged wire, %s" % name))
+        check(launch_counts() == {"K1": 0, "K1 2u": 0, "K2": 1},
+              "the ragged wire: launches %s" % launch_counts())
+    say("k2", "the Nanopore cell's block as one ragged 6-bit wire (%d rows, "
+        "%d bytes): K2's ragged entry == plain twin, filter off and on"
+        % (rows, buf.nbytes))
     out = {}
     for label, t, lcap, crit in (
             ("512x32768, no filter (one sweep)", t, L, None),
@@ -850,6 +899,19 @@ def phase_k2(dev):
                 *t, lcap, 33, crit),
             lambda t=t, lcap=lcap, crit=crit: prepare_k2(*t, lcap, 33, crit),
             "stats_k2_", 2 * nbases + 5 * Bt + output_bytes(Bt, lcap, Bt),
+            nbases, launches_per_call=1 if crit is None else 2)
+    nbases = int(rag_rows[2].sum())
+    for label, crit in (("no filter", None),
+                        ("its filter", ont["the Nanopore cell's"])):
+        out["ragged " + label] = time_kernel(
+            "k2", "K2's ragged entry, the Nanopore cell's block as one "
+            "ragged wire, " + label,
+            lambda crit=crit: batch_partials_cuda_ragged(
+                rag_buf, rows, Lr, ONT_BLOCK[1], 33, crit),
+            lambda crit=crit: fused_partials(*rag_t, ONT_BLOCK[1], 33, crit),
+            lambda crit=crit: prepare_k2_ragged(rag_buf, rows, Lr,
+                                                ONT_BLOCK[1], 33, crit),
+            "stats_k2_", buf.nbytes + output_bytes(rows, ONT_BLOCK[1], rows),
             nbases, launches_per_call=1 if crit is None else 2)
     res = out["512x32768, no filter (one sweep)"]
     res["max_abs_err"] = max_err

@@ -19,7 +19,7 @@ from ..core.counters import StatsCounters
 from ..device import resolve_device
 
 from ..kernels.stats_torch import MIN_LENGTH_INIT, zero_partials
-from ..kernels.step import make_stats_step, make_stats_step2u
+from ..kernels.step import make_stats_step, make_stats_step2u, step_ragged
 
 
 def resolve_wire(wire=None, device="cuda"):
@@ -146,6 +146,15 @@ class DeviceAccumulator:
         step = make_stats_step2u(self.lcap, self.phred, self._crit, Lu,
                                  self.kmers_on)
         self.acc = step(self.acc, buf, exc, pal, n_valid)
+        self._dirty = True
+
+    def update_ragged(self, buf, rows: int, L: int) -> None:
+        """Feed one long block's ragged 6-bit wire (``rows`` rows, the
+        longest ``L <= lcap`` columns; no k-mer fields)."""
+        if self.kmers_on:
+            raise ValueError("a ragged wire carries no k-mer partials")
+        self.acc = step_ragged(self.acc, buf, rows, L, self.lcap, self.phred,
+                               self._crit)
         self._dirty = True
 
     def flush(self) -> None:

@@ -134,7 +134,7 @@ def get_lib():
                 "packer", "numpy packer")
 
 
-_ABI = 10  # must match hpgq_abi_version() in packer.cpp
+_ABI = 11  # must match hpgq_abi_version() in packer.cpp
 
 # ---------------------------------------------------------------- the plan
 
@@ -381,6 +381,11 @@ def _bind(lib):
         u8p, i64p, i64p, i32p,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         i8p, u8p, i32p, ctypes.c_int64, u8p, ctypes.c_int,
+    ]
+    lib.hpgq_pack_ragged6.restype = ctypes.c_int32
+    lib.hpgq_pack_ragged6.argtypes = [
+        u8p, i64p, i64p, i32p, i64p, ctypes.c_int64, i8p, u8p, u8p,
+        ctypes.c_int, ctypes.c_int,
     ]
     lib.hpgq_team_short.restype = ctypes.c_int64
     lib.hpgq_team_short.argtypes = []
@@ -717,6 +722,71 @@ def pack_bitwire2u(buf, seq_starts, q_starts, lens, Lu: int, nrows: int,
     if got < 0:
         return None
     return out, exc_pad(exc[:got], nrows, Lp), pal, n
+
+
+RAGGED_TAIL = 16  # zero bytes after the last row: a decode may read past it
+
+
+def ragged_head(rows: int) -> int:
+    """Bytes of the table before the rows of a ragged wire of ``rows``
+    rows (:func:`ragged_layout`)."""
+    return -(-14 * rows // 16) * 16
+
+
+def ragged_layout(lens) -> "tuple[np.ndarray, int, int]":
+    """``(off, head, total)`` of the ragged 6-bit wire of rows of ``lens``
+    (int [R], in wire order): row i's codes at ``head + off[i]``, 3 bytes
+    an 8-column group, its qualities after them from the next multiple of
+    4 bytes, 6 bytes a group, then the next row from the next multiple of
+    4 bytes; before the rows, its table, ``head`` bytes: ``off`` int64
+    [R], the lengths int32 [R], ``qbase`` uint8 [R] and ``valid`` uint8
+    [R], padded to 16 bytes; ``total`` bytes in all, with
+    :data:`RAGGED_TAIL` after the rows."""
+    R = len(lens)
+    groups = (np.asarray(lens, dtype=np.int64).clip(0) + 7) // 8
+    size = (3 * groups + 3) // 4 * 4 + (6 * groups + 3) // 4 * 4
+    off = np.zeros(R, dtype=np.int64)
+    np.cumsum(size[:-1], out=off[1:])
+    head = ragged_head(R)
+    return off, head, head + int(size.sum()) + RAGGED_TAIL
+
+
+def ragged_table(buf: np.ndarray, R: int):
+    """Views of the table at the front of a ragged wire of ``R`` rows:
+    ``(off, lens, qbase, valid)`` (:func:`ragged_layout`)."""
+    return (buf[:8 * R].view(np.int64), buf[8 * R:12 * R].view(np.int32),
+            buf[12 * R:13 * R], buf[13 * R:14 * R])
+
+
+def pack_ragged6(buf, seq_starts, q_starts, lens, lut=None, simd=True,
+                 num_threads: int = 0):
+    """The ragged 6-bit wire of the reads at ``seq_starts``/``q_starts``
+    of ``lens`` bases, in that order (:func:`ragged_layout`): one uint8
+    buffer, the table then the rows, every row ``valid`` and at its own
+    length, its qualities re-based on its minimum (``qbase``).  None when
+    a row's qualities span 64 values or more.  ``lut`` is the base-code
+    table (``hpgq_torch.io.packer.BASE_LUT``); ``simd`` False packs by
+    whole groups where the CPU has AVX2 too."""
+    lib = get_lib()
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    R = len(lens)
+    off, head, total = ragged_layout(lens)
+    out = np.zeros(total, dtype=np.uint8)
+    t_off, t_lens, qbase, valid = ragged_table(out, R)
+    t_off[:] = off
+    t_lens[:] = lens
+    valid[:] = 1
+    if lut is None:
+        from ..packer import BASE_LUT as lut
+    arr = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
+    ok = lib.hpgq_pack_ragged6(
+        arr,
+        np.ascontiguousarray(seq_starts, dtype=np.int64),
+        np.ascontiguousarray(q_starts, dtype=np.int64),
+        lens, off, R, lut, qbase, out[head:], int(bool(simd)),
+        _threads(num_threads),
+    )
+    return out if ok else None
 
 
 def pack_qnwire(buf, seq_starts, q_starts, lens, L: int, nrows: int,

@@ -909,6 +909,236 @@ void hpgq_pack_qnwire(const uint8_t* buf, const int64_t* seq_starts,
     }
 }
 
+}  // extern "C"
+
+namespace {
+
+// The ragged 6-bit wire of a long-read block (hpgq_pack_ragged6): each
+// row's 8-column groups, 3 bytes of 3-bit codes and 6 bytes of 6-bit
+// qualities a group, the first column in the low bits.
+
+// The bases a vector step maps itself: the letters of "ACGTN" whose
+// codes in `lut` fit 3 bits, each with a distinct low nibble (A 1, C 3,
+// G 7, T 4, N 14), so that one byte shuffle indexed by the base finds its
+// letter and one its code.  Any other byte goes through `lut`.
+struct FastBases {
+    uint8_t letter[16];  // the letter of each low nibble, or unmatchable
+    uint8_t code[16];
+};
+
+FastBases fast_bases(const int8_t* lut) {
+    FastBases f;
+    for (int k = 0; k < 16; ++k) {
+        f.letter[k] = (uint8_t)(k ^ 1);  // its low nibble is not k
+        f.code[k] = 0;
+    }
+    for (const char* p = "ACGTN"; *p; ++p) {
+        const uint8_t ch = (uint8_t)*p;
+        const int8_t c = lut[ch];
+        if (c < 0 || c > 7) continue;
+        f.letter[ch & 15] = ch;
+        f.code[ch & 15] = (uint8_t)c;
+    }
+    return f;
+}
+
+// n codes and 6-bit qualities (q & 0x7F less qbase) from column j, pad
+// codes 5 and pad qualities 0 up to the group's end, as whole groups.
+void pack_groups(const uint8_t* seq, const uint8_t* q, int64_t j, int64_t n,
+                 int64_t end, uint8_t qbase, const int8_t* lut, uint8_t* cw,
+                 uint8_t* qw) {
+    for (; j < end; j += 8) {
+        uint32_t c24 = 0;
+        uint64_t q48 = 0;
+        for (int k = 0; k < 8; ++k) {
+            const int64_t p = j + k;
+            const uint32_t c = p < n ? (uint32_t)(lut[seq[p]] & 7) : 5u;
+            const uint64_t v = p < n ? (uint64_t)((q[p] & 0x7F) - qbase) : 0;
+            c24 |= c << (3 * k);
+            q48 |= v << (6 * k);
+        }
+        uint8_t* c = cw + 3 * (j / 8);
+        uint8_t* v = qw + 6 * (j / 8);
+        for (int b = 0; b < 3; ++b) c[b] = (uint8_t)(c24 >> (8 * b));
+        for (int b = 0; b < 6; ++b) v[b] = (uint8_t)(q48 >> (8 * b));
+    }
+}
+
+// The smallest and largest of q[0..n) & 0x7F.
+void qual_range(const uint8_t* q, int64_t n, uint8_t* lo, uint8_t* hi) {
+    uint8_t mn = 255, mx = 0;
+    for (int64_t j = 0; j < n; ++j) {
+        const uint8_t v = q[j] & 0x7F;
+        mn = v < mn ? v : mn;
+        mx = v > mx ? v : mx;
+    }
+    *lo = mn;
+    *hi = mx;
+}
+
+#if defined(__x86_64__) && defined(__GNUC__)
+__attribute__((target("avx2"))) void qual_range_avx2(const uint8_t* q,
+                                                     int64_t n, uint8_t* lo,
+                                                     uint8_t* hi) {
+    const __m256i m7f = _mm256_set1_epi8(0x7F);
+    __m256i mn = _mm256_set1_epi8((char)0xFF), mx = _mm256_setzero_si256();
+    int64_t j = 0;
+    for (; j + 32 <= n; j += 32) {
+        const __m256i v = _mm256_and_si256(
+            _mm256_loadu_si256(reinterpret_cast<const __m256i*>(q + j)), m7f);
+        mn = _mm256_min_epu8(mn, v);
+        mx = _mm256_max_epu8(mx, v);
+    }
+    alignas(32) uint8_t a[32], b[32];
+    _mm256_store_si256(reinterpret_cast<__m256i*>(a), mn);
+    _mm256_store_si256(reinterpret_cast<__m256i*>(b), mx);
+    uint8_t l, h;
+    qual_range(q + j, n - j, &l, &h);
+    for (int k = 0; k < 32; ++k) {
+        l = a[k] < l ? a[k] : l;
+        h = b[k] > h ? b[k] : h;
+    }
+    *lo = l;
+    *hi = h;
+}
+
+// 32 columns a step: the codes by two byte shuffles where all 32 bases
+// are in the fast set, else through `lut`; 8 codes of 3 bits into 3
+// bytes and 4 qualities of 6 bits into 3 bytes by multiply-adds and a
+// shuffle.  The last partial step goes through pack_groups.
+__attribute__((target("avx2"))) void pack_row6_avx2(
+        const uint8_t* seq, const uint8_t* q, int64_t n, int64_t end,
+        uint8_t qbase, const int8_t* lut, const FastBases& f, uint8_t* cw,
+        uint8_t* qw) {
+    const __m256i letters = _mm256_broadcastsi128_si256(
+        _mm_loadu_si128(reinterpret_cast<const __m128i*>(f.letter)));
+    const __m256i codes = _mm256_broadcastsi128_si256(
+        _mm_loadu_si128(reinterpret_cast<const __m128i*>(f.code)));
+    const __m256i m7f = _mm256_set1_epi8(0x7F);
+    const __m256i base = _mm256_set1_epi8((char)qbase);
+    const __m256i c_pair = _mm256_set1_epi16(1 | (8 << 8));      // c0 + 8 c1
+    const __m256i c_quad = _mm256_set1_epi32(1 | (64 << 16));    // + 64 x
+    const __m256i q_pair = _mm256_set1_epi16(1 | (64 << 8));     // q0 + 64 q1
+    const __m256i q_quad = _mm256_set1_epi32(1 | (4096 << 16));  // + 4096 x
+    const __m256i low32 = _mm256_set1_epi64x(0xFFFFFFFFLL);
+    // bytes 0-2 of each 64-bit lane (codes) or 32-bit lane (qualities)
+    // to the bottom of their 128-bit lane
+    const __m256i c_take = _mm256_setr_epi8(
+        0, 1, 2, 8, 9, 10, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1,
+        0, 1, 2, 8, 9, 10, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1);
+    const __m256i q_take = _mm256_setr_epi8(
+        0, 1, 2, 4, 5, 6, 8, 9, 10, 12, 13, 14, -1, -1, -1, -1,
+        0, 1, 2, 4, 5, 6, 8, 9, 10, 12, 13, 14, -1, -1, -1, -1);
+    const __m256i q_join = _mm256_setr_epi32(0, 1, 2, 4, 5, 6, 3, 7);
+    int64_t j = 0;
+    for (; j + 32 <= n; j += 32) {
+        const __m256i s =
+            _mm256_loadu_si256(reinterpret_cast<const __m256i*>(seq + j));
+        __m256i c = _mm256_shuffle_epi8(codes, s);
+        if (_mm256_movemask_epi8(_mm256_cmpeq_epi8(
+                _mm256_shuffle_epi8(letters, s), s)) != -1) {
+            alignas(32) uint8_t slow[32];
+            for (int k = 0; k < 32; ++k) slow[k] = (uint8_t)(lut[seq[j + k]] & 7);
+            c = _mm256_load_si256(reinterpret_cast<const __m256i*>(slow));
+        }
+        c = _mm256_madd_epi16(_mm256_maddubs_epi16(c, c_pair), c_quad);
+        c = _mm256_or_si256(_mm256_and_si256(c, low32),
+                            _mm256_srli_epi64(c, 20));
+        c = _mm256_shuffle_epi8(c, c_take);
+        const uint64_t c0 = (uint64_t)_mm256_extract_epi64(c, 0);
+        const uint64_t c1 = (uint64_t)_mm256_extract_epi64(c, 2);
+        uint8_t* co = cw + 3 * (j / 8);
+        memcpy(co, &c0, 6);
+        memcpy(co + 6, &c1, 6);
+
+        __m256i v = _mm256_sub_epi8(
+            _mm256_and_si256(
+                _mm256_loadu_si256(reinterpret_cast<const __m256i*>(q + j)),
+                m7f),
+            base);
+        v = _mm256_madd_epi16(_mm256_maddubs_epi16(v, q_pair), q_quad);
+        v = _mm256_permutevar8x32_epi32(_mm256_shuffle_epi8(v, q_take),
+                                        q_join);
+        uint8_t* qo = qw + 6 * (j / 8);
+        _mm_storeu_si128(reinterpret_cast<__m128i*>(qo),
+                         _mm256_castsi256_si128(v));
+        _mm_storel_epi64(reinterpret_cast<__m128i*>(qo + 16),
+                         _mm256_extracti128_si256(v, 1));
+    }
+    pack_groups(seq, q, j, n, end, qbase, lut, cw, qw);
+}
+#endif
+
+}  // namespace
+
+extern "C" {
+
+// Pack R reads into the ragged 6-bit wire of a long-read block, each row
+// at its own length: row i's codes at wire + off[i] (3 bytes an 8-column
+// group, ceil(lens[i] / 8) groups, the pad codes 5), its qualities 4-byte
+// aligned after them (6 bytes a group, q & 0x7F less qbase[i], its
+// minimum; pad 0).  The caller lays the rows out (off, from the sorted
+// lengths) and zeroes the buffer, so the bytes between rows stay 0.  Rows
+// are packed on a team of `num_threads`, taken one at a time (they come
+// longest first), 32 columns a step where `simd` is set and the CPU has
+// AVX2, else by whole groups.  Returns 1, or 0 when a row's qualities
+// span 64 values or more (the wire is then partial; the caller packs the
+// block another way).
+int32_t hpgq_pack_ragged6(const uint8_t* buf, const int64_t* seq_starts,
+                          const int64_t* q_starts, const int32_t* lens,
+                          const int64_t* off, int64_t R, const int8_t* lut,
+                          uint8_t* qbase, uint8_t* wire, int simd,
+                          int num_threads) {
+    if (num_threads < 1) num_threads = 1;
+#if defined(__x86_64__) && defined(__GNUC__)
+    const bool avx2 = simd && has_avx2();
+#else
+    const bool avx2 = false;
+    (void)simd;
+#endif
+    const FastBases f = fast_bases(lut);
+    volatile int misfit = 0;
+#ifdef _OPENMP
+#pragma omp parallel num_threads(num_threads)
+#endif
+    {
+        note_team(num_threads);
+#ifdef _OPENMP
+#pragma omp for schedule(dynamic, 1)
+#endif
+        for (int64_t i = 0; i < R; ++i) {
+            if (misfit) continue;
+            const int64_t n = lens[i] > 0 ? lens[i] : 0;
+            const int64_t end = (n + 7) / 8 * 8;
+            const uint8_t* seq = buf + seq_starts[i];
+            const uint8_t* q = buf + q_starts[i];
+            uint8_t lo = 0, hi = 0;
+#if defined(__x86_64__) && defined(__GNUC__)
+            if (avx2)
+                qual_range_avx2(q, n, &lo, &hi);
+            else
+#endif
+                qual_range(q, n, &lo, &hi);
+            if (n == 0) lo = hi = 0;
+            if (hi - lo > 63) {
+                misfit = 1;
+                continue;
+            }
+            qbase[i] = lo;
+            uint8_t* cw = wire + off[i];
+            uint8_t* qw = cw + (3 * end / 8 + 3) / 4 * 4;
+#if defined(__x86_64__) && defined(__GNUC__)
+            if (avx2) {
+                pack_row6_avx2(seq, q, n, end, lo, lut, f, cw, qw);
+                continue;
+            }
+#endif
+            pack_groups(seq, q, 0, n, end, lo, lut, cw, qw);
+        }
+    }
+    return misfit ? 0 : 1;
+}
+
 // Concatenate byte spans buf[starts[i]:ends[i]) into out.  Returns total
 // bytes written.  The filter/edit writers express whole records (and
 // trimmed record pieces) as span lists over the original chunk buffer, so
@@ -925,6 +1155,6 @@ int64_t hpgq_concat_spans(const uint8_t* buf, const int64_t* starts,
     return total;
 }
 
-int hpgq_abi_version(void) { return 10; }
+int hpgq_abi_version(void) { return 11; }
 
 }  // extern "C"

@@ -599,6 +599,62 @@ def pack_block_bitwire_tier(block, max_len: int, tier: int,
     return wire_bitpack_np(*packed)
 
 
+def wire_ragged6_np(arr, seq_starts, q_starts, lens, lut=None):
+    """Numpy reference of the ragged 6-bit wire (see
+    ``native.ragged_layout`` and ``hpgq_pack_ragged6``), one row at a time
+    from the reads' bytes: None when a row's qualities span 64 values or
+    more.  Differential oracle for the native packer, and its fallback."""
+    from .native import ragged_layout, ragged_table
+
+    lut = BASE_LUT if lut is None else lut
+    lens = np.asarray(lens, dtype=np.int32)
+    R = len(lens)
+    off, head, total = ragged_layout(lens)
+    out = np.zeros(total, dtype=np.uint8)
+    t_off, t_lens, qbase, valid = ragged_table(out, R)
+    t_off[:], t_lens[:], valid[:] = off, lens, 1
+    for i in range(R):
+        n = max(int(lens[i]), 0)
+        q = arr[q_starts[i]:q_starts[i] + n] & 0x7F
+        lo = int(q.min()) if n else 0
+        if n and int(q.max()) - lo > 63:
+            return None
+        qbase[i] = lo
+        end = -(-n // 8) * 8
+        codes = np.full(end, BASE_OTHER, dtype=np.uint8)
+        codes[:n] = lut[arr[seq_starts[i]:seq_starts[i] + n]] & 7
+        q6 = np.zeros(end, dtype=np.uint8)
+        q6[:n] = q - lo
+        c = _bitpack_np(codes[None, :], 3)[0]
+        v = _bitpack_np(q6[None, :], 6)[0]
+        at = head + int(off[i])
+        out[at:at + c.size] = c
+        at += -(-c.size // 4) * 4
+        out[at:at + v.size] = v
+    return out
+
+
+def try_pack_block_ragged(block):
+    """A long block as one ragged 6-bit wire: ``(buf, rows, L)``, its
+    reads in order of falling length (so K2's tiles of neighbouring rows
+    stay dense), ``L`` the longest; None when a read's qualities span 64
+    values or more."""
+    lens = block.seq_lens
+    order = np.argsort(-lens, kind="stable")
+    args = (block.arr, block.starts[order, 1], block.starts[order, 3],
+            lens[order])
+
+    from . import native
+
+    if native.available():
+        buf = native.pack_ragged6(*args)
+    else:
+        buf = wire_ragged6_np(*args)
+    if buf is None:
+        return None
+    return buf, len(order), int(lens.max(initial=0))
+
+
 def wire_qn8_np(codes, quals, lens, valid) -> np.ndarray:
     """Numpy reference of the qn8 wire: rows
     [(qual & 0x7F | is_N << 7) x L | len_le32 | valid | pad3]

@@ -125,8 +125,10 @@ def load(verbose: bool = False):
                                           *[p] * 7, p, p, p, p, p]
         lib.hpgq_k2_launch.argtypes = [p, p, p, p, i, i, i, K1Crit,
                                        *[p] * 7, p, p, p, p]
+        lib.hpgq_k2_launch_ragged.argtypes = [p, p, p, p, p, i, i, i, K1Crit,
+                                              *[p] * 7, p, p, p, p]
         for fn in (lib.hpgq_k1_launch, lib.hpgq_k1_launch_2u,
-                   lib.hpgq_k2_launch):
+                   lib.hpgq_k2_launch, lib.hpgq_k2_launch_ragged):
             fn.restype = i
         lib.hpgq_k1_tiles.argtypes = [i, i, i, i, i]
         lib.hpgq_k1_tiles.restype = i

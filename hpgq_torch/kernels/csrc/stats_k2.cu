@@ -47,6 +47,20 @@
 // * The f32 mean-quality sum is left to the wrapper (a fixed-order sum of
 //   the per-row means), so it is the same every run.
 //
+// The ragged entry (hpgq_k2_launch_ragged) takes a long-read block as its
+// host packs it, one ragged 6-bit wire (hpgq_torch.io.native.
+// ragged_layout): the reads longest first, each at its own length rounded
+// up to 8 columns, 3 bytes of 3-bit codes and 6 bytes of 6-bit qualities
+// (less the row's qbase) an 8-column group, found by a row table of
+// offsets, lengths, qbases and valid flags.  Its tiles are the plain
+// entry's over those rows; each lane loads its 16 columns' 6 + 12 bytes by
+// 32-bit words and spreads them into the byte lanes the plain entry loads,
+// so the sums are the plain entry's code.  Rows come longest first, so a
+// band's first row is its longest and every tile past it exits at once.
+// The wire is read as the host sent it, about 1.1 bytes a base, where the
+// plain entry reads 2 bytes a base that torch ops decoded and padded
+// first.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // (no --use_fast_math: the mean must be the IEEE quotient).  The host entry
 // point has a plain C ABI and returns cudaGetLastError().
@@ -62,15 +76,89 @@
 #define K2_FIELDS 8          // scratch sums per row
 #define K2_UNROLL 4          // rows a warp has in flight
 
+#define K2_BYTES 0      // plain entry, rows not 16-byte aligned
+#define K2_VEC 1        // plain entry, 16-byte loads
+#define K2_RAGGED 2     // ragged entry
+
 namespace {
 
-// Load 16 codes and quals at columns [c0, c0+16) of a row (positions at or
-// past n load as 0; they are masked by n anyway).
-template <bool VEC>
-__device__ __forceinline__ void load16(const int8_t* crow, const uint8_t* qrow,
-                                       int c0, int n, unsigned cw[4],
-                                       unsigned qw[4]) {
-    if (VEC) {
+struct K2Args {
+    const int8_t* codes;
+    const uint8_t* quals;
+    const int32_t* lens;
+    const uint8_t* valid;
+    const uint8_t* wire;      // ragged entry: the rows
+    const long long* row_off; // ragged entry: each row's offset in `wire`
+    const uint8_t* qbase;     // ragged entry: each row's quality base
+    int B, L, lcap;
+    K1Crit cr;
+    long long* scalars;
+    long long* length_hist;
+    long long* quality_hist;
+    long long* gc_hist;
+    long long* cov;
+    long long* qpn;
+    long long* bpn;
+    long long* row_sums;      // scratch [B, K2_FIELDS], zeroed
+    unsigned* band_done;      // scratch [ceil(B / K2_ROWS)], zeroed
+    float* row_mean;
+    uint8_t* pass_out;
+};
+
+// Four 3-bit fields (12 bits) into the bytes of a word.
+__device__ __forceinline__ unsigned spread3(unsigned b) {
+    return (b & 7u) | ((b >> 3) & 7u) << 8 | ((b >> 6) & 7u) << 16 |
+           ((b >> 9) & 7u) << 24;
+}
+
+// Four 6-bit fields (24 bits) into the bytes of a word.
+__device__ __forceinline__ unsigned spread6(unsigned b) {
+    return (b & 63u) | ((b >> 6) & 63u) << 8 | ((b >> 12) & 63u) << 16 |
+           ((b >> 18) & 63u) << 24;
+}
+
+// Row `row`'s columns [c0, c0+16) from the ragged wire, c0 a multiple of
+// 16 below the row's length: codes, 6 bytes at 6 k of the row (k = c0 /
+// 16), and qualities, 12 bytes at 12 k of the row's 4-byte aligned
+// qualities, by 32-bit loads (a read past the row's last group lands in
+// the next row or the wire's tail; those columns are masked by n).
+__device__ __forceinline__ void load16_ragged(const K2Args& a, int row,
+                                              int c0, unsigned cw[4],
+                                              unsigned qw[4]) {
+    const int groups = (a.lens[row] + 7) >> 3;
+    const uint8_t* base = a.wire + a.row_off[row];
+    const int cb = 6 * (c0 >> 4);
+    const unsigned* cp = reinterpret_cast<const unsigned*>(base + (cb & ~3));
+    const unsigned long long c48 =
+        (((unsigned long long)__ldg(cp + 1) << 32) | __ldg(cp)) >>
+        (8 * (cb & 3));
+    const unsigned* qp = reinterpret_cast<const unsigned*>(
+        base + (3 * groups + 3) / 4 * 4 + 12 * (c0 >> 4));
+    const unsigned q0 = __ldg(qp), q1 = __ldg(qp + 1), q2 = __ldg(qp + 2);
+    const unsigned qb = 0x01010101u * a.qbase[row];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        cw[i] = spread3((unsigned)(c48 >> (12 * i)) & 0xFFFu);
+    // no carry: a field is at most 63 and a qbase at most 127
+    qw[0] = spread6(q0 & 0xFFFFFFu) + qb;
+    qw[1] = spread6(((q0 >> 24) | (q1 << 8)) & 0xFFFFFFu) + qb;
+    qw[2] = spread6(((q1 >> 16) | (q2 << 16)) & 0xFFFFFFu) + qb;
+    qw[3] = spread6(q2 >> 8) + qb;
+}
+
+// Load 16 codes and quals at columns [c0, c0+16) of row `row` (positions
+// at or past n load as 0 or as the row's padding; they are masked by n
+// anyway).
+template <int MODE>
+__device__ __forceinline__ void load16(const K2Args& a, int row, int c0,
+                                       int n, unsigned cw[4], unsigned qw[4]) {
+    if (MODE == K2_RAGGED) {
+        load16_ragged(a, row, c0, cw, qw);
+        return;
+    }
+    const int8_t* crow = a.codes + (size_t)row * a.L;
+    const uint8_t* qrow = a.quals + (size_t)row * a.L;
+    if (MODE == K2_VEC) {
         const uint4 c4 = *reinterpret_cast<const uint4*>(crow + c0);
         const uint4 q4 = *reinterpret_cast<const uint4*>(qrow + c0);
         cw[0] = c4.x; cw[1] = c4.y; cw[2] = c4.z; cw[3] = c4.w;
@@ -133,26 +221,6 @@ __device__ __forceinline__ void flush_positions(
             if (v[2 + b]) add_u64(&bpn[(size_t)b * lcap + col0 + c], v[2 + b]);
     }
 }
-
-struct K2Args {
-    const int8_t* codes;
-    const uint8_t* quals;
-    const int32_t* lens;
-    const uint8_t* valid;
-    int B, L, lcap;
-    K1Crit cr;
-    long long* scalars;
-    long long* length_hist;
-    long long* quality_hist;
-    long long* gc_hist;
-    long long* cov;
-    long long* qpn;
-    long long* bpn;
-    long long* row_sums;      // scratch [B, K2_FIELDS], zeroed
-    unsigned* band_done;      // scratch [ceil(B / K2_ROWS)], zeroed
-    float* row_mean;
-    uint8_t* pass_out;
-};
 
 // Add 1 per lane of `mask` (all of which call this) to hist[key], one
 // global atomic per distinct key (key < 0: nothing).
@@ -258,7 +326,7 @@ __device__ __forceinline__ bool tile_rows(const K2Args& a, int r0, int col0,
 // criteria off), then the band's verdicts in its last tile.  Each warp
 // loads K2_UNROLL rows before it works on them, so several rows' loads
 // are in flight.
-template <bool VEC, bool POS>
+template <int MODE, bool POS>
 __global__ void __launch_bounds__(K2_THREADS)
 stats_k2_rows(const K2Args a) {
     __shared__ unsigned s_st[POS ? K2_WARPS * K2_PACKED * 32 : 1];
@@ -279,10 +347,7 @@ stats_k2_rows(const K2Args a) {
         for (int u = 0; u < K2_UNROLL; ++u) {
             const int r = rb + u * K2_WARPS;
             const int n = r < K2_ROWS ? s_n[r] : 0;
-            if (c0 < n)
-                load16<VEC>(a.codes + (size_t)(r0 + r) * a.L,
-                            a.quals + (size_t)(r0 + r) * a.L, c0, n, cw[u],
-                            qw[u]);
+            if (c0 < n) load16<MODE>(a, r0 + r, c0, n, cw[u], qw[u]);
         }
 #pragma unroll
         for (int u = 0; u < K2_UNROLL; ++u) {
@@ -321,7 +386,7 @@ stats_k2_rows(const K2Args a) {
 }
 
 // Launch B (criteria on): the per-position sums over the passing rows.
-template <bool VEC>
+template <int MODE>
 __global__ void __launch_bounds__(K2_THREADS)
 stats_k2_positions(const K2Args a) {
     __shared__ unsigned s_st[K2_WARPS * K2_PACKED * 32];
@@ -342,10 +407,7 @@ stats_k2_positions(const K2Args a) {
             const int r = rb + u * K2_WARPS;
             const int n = r < K2_ROWS && s_ok[r] ? s_n[r] : 0;
             k[u] = n - c0;
-            if (k[u] > 0)
-                load16<VEC>(a.codes + (size_t)(r0 + r) * a.L,
-                            a.quals + (size_t)(r0 + r) * a.L, c0, n, cw[u],
-                            qw[u]);
+            if (k[u] > 0) load16<MODE>(a, r0 + r, c0, n, cw[u], qw[u]);
         }
 #pragma unroll
         for (int u = 0; u < K2_UNROLL; ++u)
@@ -354,20 +416,50 @@ stats_k2_positions(const K2Args a) {
     flush_positions(pk, s_st, a.L, a.lcap, col0, a.cov, a.qpn, a.bpn);
 }
 
-template <bool VEC>
+template <int MODE>
 cudaError_t k2_launch(const K2Args& a, cudaStream_t s) {
     // at least one tile per band: with L == 0 it still gives the verdicts
     const dim3 grid(a.L > 0 ? (a.L + K2_COLS - 1) / K2_COLS : 1,
                     (a.B + K2_ROWS - 1) / K2_ROWS);
     if (a.cr.on) {
-        stats_k2_rows<VEC, false><<<grid, K2_THREADS, 0, s>>>(a);
+        stats_k2_rows<MODE, false><<<grid, K2_THREADS, 0, s>>>(a);
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return e;
-        stats_k2_positions<VEC><<<grid, K2_THREADS, 0, s>>>(a);
+        stats_k2_positions<MODE><<<grid, K2_THREADS, 0, s>>>(a);
     } else {
-        stats_k2_rows<VEC, true><<<grid, K2_THREADS, 0, s>>>(a);
+        stats_k2_rows<MODE, true><<<grid, K2_THREADS, 0, s>>>(a);
     }
     return cudaGetLastError();
+}
+
+// The arguments both entries share; false when B, L or lcap are out of
+// range.
+bool k2_args(K2Args& a, const void* lens, const void* valid, int B, int L,
+             int lcap, K1Crit crit, void* scalars, void* length_hist,
+             void* quality_hist, void* gc_hist, void* cov, void* qpn,
+             void* bpn, void* scratch, void* row_mean, void* pass_out) {
+    const long long bands = ((long long)B + K2_ROWS - 1) / K2_ROWS;
+    if (L < 0 || L > lcap || L > INT_MAX - K2_COLS || bands > 65535)
+        return false;
+    a = K2Args{};
+    a.lens = (const int32_t*)lens;
+    a.valid = (const uint8_t*)valid;
+    a.B = B;
+    a.L = L;
+    a.lcap = lcap;
+    a.cr = crit;
+    a.scalars = (long long*)scalars;
+    a.length_hist = (long long*)length_hist;
+    a.quality_hist = (long long*)quality_hist;
+    a.gc_hist = (long long*)gc_hist;
+    a.cov = (long long*)cov;
+    a.qpn = (long long*)qpn;
+    a.bpn = (long long*)bpn;
+    a.row_sums = (long long*)scratch;
+    a.band_done = (unsigned*)((long long*)scratch + (size_t)B * K2_FIELDS);
+    a.row_mean = (float*)row_mean;
+    a.pass_out = (uint8_t*)pass_out;
+    return true;
 }
 
 }  // namespace
@@ -392,33 +484,42 @@ int hpgq_k2_launch(const void* codes, const void* quals, const void* lens,
                    void* scratch, void* row_mean, void* pass_out,
                    void* stream) {
     if (B <= 0) return (int)cudaSuccess;
-    const long long bands = ((long long)B + K2_ROWS - 1) / K2_ROWS;
-    if (L < 0 || L > lcap || L > INT_MAX - K2_COLS || bands > 65535)
-        return (int)cudaErrorInvalidValue;
     K2Args a;
+    if (!k2_args(a, lens, valid, B, L, lcap, crit, scalars, length_hist,
+                 quality_hist, gc_hist, cov, qpn, bpn, scratch, row_mean,
+                 pass_out))
+        return (int)cudaErrorInvalidValue;
     a.codes = (const int8_t*)codes;
     a.quals = (const uint8_t*)quals;
-    a.lens = (const int32_t*)lens;
-    a.valid = (const uint8_t*)valid;
-    a.B = B;
-    a.L = L;
-    a.lcap = lcap;
-    a.cr = crit;
-    a.scalars = (long long*)scalars;
-    a.length_hist = (long long*)length_hist;
-    a.quality_hist = (long long*)quality_hist;
-    a.gc_hist = (long long*)gc_hist;
-    a.cov = (long long*)cov;
-    a.qpn = (long long*)qpn;
-    a.bpn = (long long*)bpn;
-    a.row_sums = (long long*)scratch;
-    a.band_done = (unsigned*)((long long*)scratch + (size_t)B * K2_FIELDS);
-    a.row_mean = (float*)row_mean;
-    a.pass_out = (uint8_t*)pass_out;
     const bool vec = L % 16 == 0 && (uintptr_t)codes % 16 == 0 &&
                      (uintptr_t)quals % 16 == 0;
-    return (int)(vec ? k2_launch<true>(a, (cudaStream_t)stream)
-                     : k2_launch<false>(a, (cudaStream_t)stream));
+    return (int)(vec ? k2_launch<K2_VEC>(a, (cudaStream_t)stream)
+                     : k2_launch<K2_BYTES>(a, (cudaStream_t)stream));
+}
+
+// Launch K2's ragged entry on `stream` over a ragged 6-bit wire of B rows
+// (hpgq_torch.io.native.ragged_layout): `wire` its rows (4-byte aligned,
+// with 16 readable bytes after the last), `row_off` int64 [B], `lens`
+// int32 [B] (at most L), `qbase` and `valid` uint8 [B]; the outputs as
+// hpgq_k2_launch's.  Returns cudaGetLastError() after the launches.
+int hpgq_k2_launch_ragged(const void* wire, const void* row_off,
+                          const void* lens, const void* qbase,
+                          const void* valid, int B, int L, int lcap,
+                          K1Crit crit, void* scalars, void* length_hist,
+                          void* quality_hist, void* gc_hist, void* cov,
+                          void* qpn, void* bpn, void* scratch,
+                          void* row_mean, void* pass_out, void* stream) {
+    if (B <= 0) return (int)cudaSuccess;
+    K2Args a;
+    if ((uintptr_t)wire % 4 || (uintptr_t)row_off % 8 ||
+        !k2_args(a, lens, valid, B, L, lcap, crit, scalars, length_hist,
+                 quality_hist, gc_hist, cov, qpn, bpn, scratch, row_mean,
+                 pass_out))
+        return (int)cudaErrorInvalidValue;
+    a.wire = (const uint8_t*)wire;
+    a.row_off = (const long long*)row_off;
+    a.qbase = (const uint8_t*)qbase;
+    return (int)k2_launch<K2_RAGGED>(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -12,7 +12,10 @@ at lcap <= 4096, K2 above (with no upper limit), the plain twin
 (``stats_torch.fused_partials``) for CPU tensors, and the k-mer pass on
 the pass mask of whichever ran.  :func:`batch_partials_2u` takes a 2u
 batch straight from the wire: K1's 2u entry on CUDA, the decode and the
-plain twin on the CPU.  Nothing falls back from one to another.
+plain twin on the CPU; :func:`batch_partials_ragged` likewise a long
+block's ragged 6-bit wire, through K2's ragged entry
+(:func:`batch_partials_cuda_ragged`).  Nothing falls back from one to
+another.
 """
 
 from __future__ import annotations
@@ -24,13 +27,18 @@ import torch
 from ..constants import MAX_VALUE, MIN_VALUE
 from ..core.counters import GC_BINS, QUAL_BINS
 from .stats_torch import MIN_LENGTH_INIT, fused_partials, kmer_partials
-from .wire_torch import pad_wire_cols, wire_unbits2u
+from .wire_torch import (
+    pad_wire_cols,
+    ragged_table,
+    wire_unbits2u,
+    wire_unragged,
+)
 
 MAX_LCAP = 4096  # K1's limit; longer reads go through K2
 
 LAUNCHES = 0  # K1 plain-entry launches since the last reset
 LAUNCHES_2U = 0  # K1 2u-entry launches since the last reset
-LAUNCHES_K2 = 0  # K2 calls (launch A, and B with criteria) since the reset
+LAUNCHES_K2 = 0  # K2 calls, either entry (launch A, and B with criteria)
 _count_lock = threading.Lock()
 
 _NUM_READS, _ACC_LENGTH, _MIN_LEN, _MAX_LEN, _NUM_PASSED, _NUM_FAILED = range(6)
@@ -209,6 +217,19 @@ def batch_partials_cuda_long(codes, quals, lens, valid, lcap: int,
     return finish()
 
 
+def batch_partials_cuda_ragged(buf, rows: int, L: int, lcap: int,
+                               phred: int, crit=None) -> dict:
+    """Launch K2's ragged entry on ``torch.cuda.current_stream()``: the
+    partials of :func:`batch_partials_cuda_long` over a long block read
+    straight from its ragged 6-bit wire (``buf`` uint8, the table then the
+    rows, ``rows`` rows, the longest ``L <= lcap``;
+    ``hpgq_torch.io.native.ragged_layout``)."""
+    launch, finish = prepare_k2_ragged(buf, rows, L, lcap, phred, crit)
+    if launch():
+        _count("K2")
+    return finish()
+
+
 # The wrappers above in two halves, ``(launch, finish)``: the checks and
 # the zeroed outputs (and K1's 16-byte row padding) come first;
 # ``launch()`` is the raw launch alone, on the current stream at its call,
@@ -313,6 +334,56 @@ def prepare_k2(codes, quals, lens, valid, lcap: int, phred: int, crit=None):
     # value every run
     return launch, lambda: out.partials(out.f32.sum(dtype=torch.float64),
                                         out.bpn.sum(dim=1), crit)
+
+
+def prepare_k2_ragged(buf, rows: int, L: int, lcap: int, phred: int,
+                      crit=None):
+    """K2's ragged entry, ready to launch (see above)."""
+    from ..io.native import ragged_head
+
+    dev = _cuda_device("K2 ragged", buf)
+    head = ragged_head(rows)
+    if buf.dim() != 1 or L > lcap or buf.shape[0] < head:
+        raise ValueError("not a ragged wire of %d rows of at most L %d <= "
+                         "lcap %d: %s bytes" % (rows, L, lcap,
+                                                tuple(buf.shape)))
+    _check("buf", buf, torch.uint8, None, dev)
+    if buf.data_ptr() % 16:
+        raise ValueError("a ragged wire must start 16-byte aligned")
+    table = [t.data_ptr() for t in ragged_table(buf, rows)]
+    from .build import load
+
+    lib = load()
+    out = _Outputs(dev, lcap, rows, rows, lib.hpgq_k2_scratch_slots(rows))
+    out.scal[_MIN_LEN] = MIN_LENGTH_INIT
+
+    def launch() -> bool:
+        if not rows:
+            return False
+        _raise_if(lib.hpgq_k2_launch_ragged(
+            buf.data_ptr() + head, *table, rows, L, lcap,
+            crit_struct(crit, phred), *out.ptrs(),
+            out.scratch.data_ptr(), out.f32.data_ptr(),
+            out.passed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "K2 ragged", lib)
+        return True
+
+    return launch, lambda: out.partials(out.f32.sum(dtype=torch.float64),
+                                        out.bpn.sum(dim=1), crit)
+
+
+def batch_partials_ragged(buf, rows: int, L: int, lcap: int, phred: int,
+                          crit=None) -> dict:
+    """The partials of one long block's ragged 6-bit wire: K2's ragged
+    entry for CUDA tensors, the decode (``wire_unragged`` +
+    ``pad_wire_cols``) and the plain twin for CPU tensors."""
+    if buf.device.type == "cuda":
+        return batch_partials_cuda_ragged(buf, rows, L, lcap, phred, crit)
+    if buf.device.type != "cpu":
+        raise ValueError("no stats kernel for device %s" % buf.device)
+    codes, quals, lens, valid = wire_unragged(buf, rows, L)
+    codes, quals = pad_wire_cols(codes, quals, lcap)
+    return fused_partials(codes, quals, lens, valid, lcap, phred, crit)
 
 
 def batch_partials_2u(buf, exc, pal, n_valid: int, L: int, lcap: int,

@@ -19,7 +19,12 @@ from __future__ import annotations
 import collections
 import threading
 
-from .stats_cuda import MAX_LCAP, batch_partials_2u, make_batch_partials
+from .stats_cuda import (
+    MAX_LCAP,
+    batch_partials_2u,
+    batch_partials_ragged,
+    make_batch_partials,
+)
 from .stats_torch import merge_into, verdicts
 from .wire_torch import (
     bitwire_kind,
@@ -30,7 +35,8 @@ from .wire_torch import (
 )
 
 # batches per wire tier since the last reset ("2u", "2c", "2q", "6bit",
-# "7bit", "plain"), one per mate on the paired path — lets a run show
+# "7bit", "plain", and "ragged" for a long block's ragged 6-bit wire), one
+# per mate on the paired path — lets a run show
 # which decoders carried it
 WIRE_BATCHES = collections.Counter()
 # batches decoded into codes/quals tensors since the last reset, by
@@ -134,6 +140,19 @@ def make_stats_step2u(lcap: int, phred: int, crit, L: int,
                                              phred, crit))
 
     return step
+
+
+def step_ragged(acc, buf, rows: int, L: int, lcap: int, phred: int,
+                crit=None):
+    """Merge one long block's ragged 6-bit wire (``rows`` rows, the longest
+    ``L`` columns) into ``acc``: K2's ragged entry on CUDA, undecoded; the
+    decode and the plain twin elsewhere.  No k-mer fields: ``--kmers``
+    blocks go as length classes."""
+    count_batch(WIRE_BATCHES, "ragged")
+    if buf.device.type != "cuda":
+        count_batch(DECODED, (buf.device.type, "ragged"))
+    return _merge(acc, batch_partials_ragged(buf, rows, L, lcap, phred,
+                                             crit))
 
 
 def make_paired_stats_step(lcap: int, phred: int, crit=None,

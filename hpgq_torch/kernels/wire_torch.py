@@ -21,7 +21,12 @@ from __future__ import annotations
 
 import torch
 
-from ..io.native import bitwire2c_width, bitwire2q_width, bitwire6_width
+from ..io.native import (
+    bitwire2c_width,
+    bitwire2q_width,
+    bitwire6_width,
+    ragged_head,
+)
 
 
 def bitwire_kind(row_width: int):
@@ -186,6 +191,44 @@ def wire_unbits2u(buf, exc, pal, n_valid: int, *, L: int):
     quals = torch.where(mask, q, zero)
     codes = torch.where(mask, codes, zero + 5).to(torch.int8)
     return codes, quals, lens, valid
+
+
+def ragged_table(buf, rows: int):
+    """``(off int64, lens int32, qbase uint8, valid uint8)``: views of the
+    table of a ragged 6-bit wire of ``rows`` rows
+    (``hpgq_torch.io.native.ragged_layout``)."""
+    return (buf[:8 * rows].view(torch.int64),
+            buf[8 * rows:12 * rows].view(torch.int32),
+            buf[12 * rows:13 * rows], buf[13 * rows:14 * rows])
+
+
+def wire_unragged(buf, rows: int, L: int):
+    """Decode a ragged 6-bit wire of ``rows`` rows, the longest ``L``
+    columns: ``(codes, quals, lens, valid)`` ``L`` wide, each row padded
+    past its length as ``pack_block`` pads it.  Every row's 8-column
+    groups are gathered at once, so this takes ``rows x L`` columns of
+    memory: the plain twin of K2's ragged entry, for CPU tensors."""
+    off, lens, qbase, valid = ragged_table(buf, rows)
+    wire = buf[ragged_head(rows):]
+    G = (L + 7) // 8
+    g = torch.arange(G, device=buf.device)
+    groups = (lens.to(torch.int64) + 7) // 8
+    inside = g[None, :] < groups[:, None]
+    qoff = off + (3 * groups + 3) // 4 * 4
+
+    def fields(start, step: int, nbits: int):
+        at = torch.where(inside, start[:, None] + step * g[None, :], 0)
+        got = wire[at[..., None] + torch.arange(step, device=buf.device)]
+        return _bit_fields(got, nbits, (1 << nbits) - 1).reshape(
+            rows, 8 * G)[:, :L]
+
+    codes = fields(off, 3, 3)
+    q = fields(qoff, 6, 6)
+    mask = _len_mask(lens, rows, L)
+    zero = torch.zeros((), dtype=torch.uint8, device=buf.device)
+    quals = torch.where(mask, q + qbase[:, None], zero)
+    codes = torch.where(mask, codes, zero + 5).to(torch.int8)
+    return codes, quals, lens, valid != 0
 
 
 def qnwire_logical_len(W: int) -> int:

@@ -10,19 +10,25 @@ the batches from K1 to K2 once the bucket passes 4096.
 With a pass's timers, a session times each growth (the ``grow`` stage on
 the feeding thread: the fold of the device accumulator to the host and
 the wider one's allocation) and counts the growths (``grow``) and, on the
-packing thread, the bytes of each long-read (K2) block bound for the
-device (``long-bytes``) and the share of them that lies past each read's
-end (``long-pad-bytes``).
+packing thread, the long-read (K2) blocks that went as one ragged wire
+(``long-ragged``) or as length classes (``long-fallback``), the bytes of
+each bound for the device (``long-bytes``) and the share of them that
+lies past each read's end (``long-pad-bytes``).
 
 Rows: short-read blocks (L <= 4096, K1) are padded to
-``bucket_rows``' 16,384-row buckets as in ``hpgq``.  A
-long-read block (K2) goes to the device as its length classes
+``bucket_rows``' 16,384-row buckets as in ``hpgq``.  A long-read block
+(K2) on the bitpack wire goes to the device as one ragged 6-bit wire
+(``hpgq_torch.io.packer.try_pack_block_ragged``): its reads longest
+first, each at its own length rounded up to 8 columns, read by K2's
+ragged entry in one call.  Where that wire does not serve (a read whose
+qualities span 64 values or more, ``--kmers``, whose pass reads decoded
+codes, or the plain wire) the block goes as its length classes
 (:func:`long_parts`), each packed at its own width and padded only to a
 multiple of :data:`PART_ROW_MULTIPLE` rows: those buckets exist to bound
 XLA's compiled shapes, eager PyTorch has no shape cache, and a 16 MB block
 of 10 kb reads holds only a few hundred reads, so 16,384 rows would be
 mostly padding.  On the device each class is padded out to the session's
-width (``unwire``), where the copy costs next to nothing.
+width (``unwire``).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ..io.packer import (
     try_pack_block_2c,
     try_pack_block_2u,
     try_pack_block_palette,
+    try_pack_block_ragged,
     wire_len,
 )
 
@@ -100,7 +107,7 @@ def pack_payload(block, L: int, rows: int, wire):
 
 def payload_len(payload) -> int:
     """Logical columns of a :func:`pack_payload` result (host or device)."""
-    if isinstance(payload, tuple) and isinstance(payload[0], str):
+    if _tag(payload) == "2u":
         return int(payload[5])
     if isinstance(payload, tuple) and len(payload) == 4:
         return payload[1].shape[1]
@@ -126,23 +133,25 @@ def long_parts(block) -> list:
             for idx in np.split(order, cuts)]
 
 
-def _is_parts(payload) -> bool:
-    """A long block's ``("parts", args, ...)``."""
-    return (isinstance(payload, tuple) and len(payload) > 0
-            and isinstance(payload[0], str) and payload[0] == "parts")
+def _tag(payload):
+    """The tag of a tagged payload (``"2u"``, ``"ragged"``, a long block's
+    ``"parts"``), else None."""
+    if isinstance(payload, tuple) and payload and isinstance(payload[0], str):
+        return payload[0]
+    return None
 
 
-def _count_long(timers, block, L: int, rows: int, host) -> None:
-    """Count a block bound for K2 (one of :func:`long_parts`, or a mate's
-    block), packed ``L`` columns wide, into ``timers``: its host payload's
-    bytes (``long-bytes``) and their share past each read's end, pad rows whole
-    (``long-pad-bytes``: the bytes times the ``rows x L`` columns past the
-    reads over all of them)."""
+def _count_long(timers, block, cells: int, host) -> None:
+    """Count a block bound for K2 (a ragged wire, one of
+    :func:`long_parts`, or a mate's block), packed in ``cells`` columns
+    over all its rows, into ``timers``: its host payload's bytes
+    (``long-bytes``) and their share past each read's end, pad rows whole
+    (``long-pad-bytes``: the bytes times the columns past the reads over
+    all of them)."""
     parts = host if isinstance(host, tuple) else (host,)
     nbytes = sum(a.nbytes for a in parts if isinstance(a, np.ndarray))
-    cells = rows * L
     bases = int(block.seq_lens.sum(dtype=np.int64))
-    pad = nbytes * (cells - bases) // cells
+    pad = nbytes * (cells - bases) // max(cells, 1)
     timers.count("long-bytes", nbytes)
     timers.count("long-pad-bytes", pad)
 
@@ -181,38 +190,64 @@ class StatsSession:
         """Host-pack a RecordBlock into the ``feed_packed`` arguments as
         numpy arrays (:func:`pack_payload`).  Reads ``self.lcap`` once, so
         a pool thread may pack while the feeding thread grows the
-        session.  A block bound for K2 goes as its length classes
+        session.  A block bound for K2 goes as one ragged 6-bit wire, a
+        ``("ragged", buf, rows, L)`` argument, where that serves (see the
+        module's docstring), else as its length classes
         (:func:`long_parts`), each packed at its own width: one
         ``("parts", args, ...)`` argument, widest part first."""
         L = max(round_up(max(block.max_len(), 1), 128), self.lcap)
         if L > MAX_LCAP:
-            return (("parts",) + tuple(self._pack_part(part)
-                                       for part in long_parts(block)),)
+            return self._pack_long(block)
         rows = batch_rows(block.num_reads, L, batch_reads or self.batch_reads)
         p = pack_payload(block, L, rows, self.acc.wire)
         return p if self.acc.wire is None else (p,)
+
+    def _pack_long(self, block):
+        if not block.num_reads:
+            return (("parts",),)
+        ragged = None
+        if self.acc.wire is not None and not self.kmers_on:
+            ragged = try_pack_block_ragged(block)
+        # both counts, so that --t shows the path not taken as 0
+        self.timers.count("long-ragged", ragged is not None)
+        self.timers.count("long-fallback", ragged is None)
+        if ragged is not None:
+            buf, rows, L = ragged
+            cells = int(((block.seq_lens.astype(np.int64) + 7) // 8 * 8).sum())
+            _count_long(self.timers, block, cells, buf)
+            return (("ragged", buf, rows, L),)
+        return (("parts",) + tuple(self._pack_part(part)
+                                   for part in long_parts(block)),)
 
     def _pack_part(self, part):
         L = round_up(max(part.max_len(), 1), 128)
         rows = round_up(part.num_reads, PART_ROW_MULTIPLE)
         p = pack_payload(part, L, rows, self.acc.wire)
-        _count_long(self.timers, part, L, rows, p)
+        _count_long(self.timers, part, rows * L, p)
         return p if self.acc.wire is None else (p,)
 
     def feed_packed(self, codes, quals=None, lens=None, valid=None):
         """Feed one packed batch already on the session's device: a
         ``("2u", buf, exc, pal, n_valid, Lu)`` tuple, a bitpack buffer or
         2c ``(buf, exc)`` tuple, the four plain tensors, or a long block's
-        ``("parts", args, ...)``, each part's ``args`` fed in turn."""
-        if _is_parts(codes):
+        ``("ragged", buf, rows, L)`` or ``("parts", args, ...)``, each
+        part's ``args`` fed in turn."""
+        tag = _tag(codes)
+        if tag == "parts":
             for args in codes[1:]:
                 self.feed_packed(*args)
+            return
+        if tag == "ragged":
+            _, buf, rows, L = codes
+            if L > self.lcap:
+                self._grow(round_up(L, 128))
+            self.acc.update_ragged(buf, rows, L)
             return
         payload = codes if quals is None else (codes, quals, lens, valid)
         L = payload_len(payload)
         if L > self.lcap:
             self._grow(round_up(L, 128))
-        if isinstance(codes, tuple) and isinstance(codes[0], str):
+        if tag == "2u":
             self.acc.update_uniform(codes[1:])
         else:
             self.acc.update(codes, quals, lens, valid)
@@ -286,7 +321,7 @@ class PairedStatsSession:
                 pack_payload(b2, L, rows, self.wire))
         if L > MAX_LCAP:
             for b, p in zip((b1, b2), pair):
-                _count_long(self.timers, b, L, rows, p)
+                _count_long(self.timers, b, rows * L, p)
         return pair
 
     def feed_pair_packed(self, in1, in2) -> None:
@@ -327,8 +362,8 @@ class PairedStatsSession:
 def to_device(packed: tuple, device, non_blocking: bool = False,
               keep: list = None, threads: int = 0) -> tuple:
     """Move a :meth:`StatsSession.pack` result to ``device`` as tensors
-    (the tags of a 2u tuple and of a long block's parts, and the 2u tuple's
-    ``n_valid`` and ``Lu``, stay host values).  For CUDA
+    (a tagged tuple's tag and its numbers, such as a 2u tuple's ``n_valid``
+    and ``Lu``, stay host values).  For CUDA
     the host arrays go through pinned buffers, which are appended to
     ``keep`` when given, so a caller can hold them until the copy is done.
     An array reaches its pinned buffer on a native team of ``threads``
@@ -345,10 +380,10 @@ def to_device(packed: tuple, device, non_blocking: bool = False,
 
     def move(x):
         if isinstance(x, tuple):
-            if _is_parts(x):
-                return (x[0],) + tuple(move(a) for a in x[1:])
-            if x and isinstance(x[0], str):  # ("2u", buf, exc, pal, n, Lu)
-                return (x[0],) + tuple(put(a) for a in x[1:4]) + x[4:]
+            if _tag(x) is not None:
+                return (x[0],) + tuple(
+                    move(a) if isinstance(a, (tuple, np.ndarray)) else a
+                    for a in x[1:])
             return tuple(move(a) for a in x)
         return put(x)
 

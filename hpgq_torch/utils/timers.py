@@ -33,8 +33,10 @@ Besides the stages, counts: integers summed under the same lock
 (``count``), such as the bytes each gzip piece inflated to, under the
 decoder that inflated it (``inflate-native-bytes``, or
 ``inflate-zlib-bytes`` where the native library is not built), or a
-stats session's growths (``grow``) and the bytes of its long-read blocks
-(``long-bytes``, of them ``long-pad-bytes`` past the reads' ends), or the
+stats session's growths (``grow``), its long-read blocks sent as one
+ragged wire (``long-ragged``) or as length classes (``long-fallback``)
+and their bytes (``long-bytes``, of them ``long-pad-bytes`` past the
+reads' ends), or the
 native calls whose OpenMP team came up smaller than the plan of the host's
 cores asked (``team-short``, counted by the threads that index and pack),
 or the pairs of mate blocks cut short because one mate's block ended

@@ -151,6 +151,45 @@ def test_grow_span_and_counts(chunk, tmp_path):
         assert line in text, text
 
 
+@pytest.mark.parametrize("path", ["ragged", "classes", "kmers"])
+def test_long_block_paths_match_reference(chunk, monkeypatch, path):
+    """``run_stats`` over the chunk in blocks of 64 reads, each past K1's
+    columns: on the bitpack wire each block goes as one ragged 6-bit wire
+    through the plain twin of K2's ragged entry (``ragged``), on the plain
+    wire (``classes``) and with ``--kmers`` (``kmers``) as its length
+    classes; every integer counter equal to the reference's and
+    ``acc_quality`` within the cell's limit on each path, the blocks
+    counted as ``long-ragged`` or ``long-fallback``, and the ragged wire's
+    bytes past the reads' ends under 2% of its bytes."""
+    b = _bench()
+    cell, corpus = chunk
+    monkeypatch.setenv("HPGQ_WIRE", "off" if path == "classes" else "bitpack")
+    opts = StatsOptions(in_filename=corpus.path, quality_encoding_name="phred33",
+                        criteria=filter_criteria(**_keywords(cell.config)),
+                        filter_on=True, batch_size=64,
+                        kmers_on=path == "kmers")
+    timers = StageTimers()
+    got = run_stats(opts, timers, report=False, device="cpu")
+    want = b.reference.reference_stats(corpus, cell.config["filter"])
+    assert b.stats.fields_off(got, want) == 0
+    assert b.stats.quality_gap(got, want) <= cell.limits["acc_quality_gap"]
+    assert timers.num_batches == 4
+    # a block past K1's columns goes long, and so may one within them
+    # that is packed after the session grew
+    long_own = sum(int(corpus.lens[i:i + 64].max()) > 4096
+                   for i in range(0, corpus.reads, 64))
+    counts = timers.counts
+    ragged, fallback = counts["long-ragged"], counts["long-fallback"]
+    assert long_own <= ragged + fallback <= timers.num_batches
+    if path == "ragged":
+        assert fallback == 0
+        assert 0 < 50 * counts["long-pad-bytes"] < counts["long-bytes"]
+        # 9 bits a base, the table and the pad
+        assert counts["long-bytes"] < 1.2 * corpus.bases
+    else:
+        assert ragged == 0
+
+
 def test_long_parts_are_length_classes(chunk):
     """A long block goes to the device as its length classes: together
     they hold each of its reads once; inside one, every width rounds up to

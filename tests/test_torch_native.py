@@ -338,7 +338,8 @@ assert lib is not None
 
 def reads(kind):
     quals = {"2u": b"#-8F", "2c": b"#-8F", "2q": b"#-8F",
-             "6bit": bytes(range(40, 100)), "7bit": bytes(range(33, 127)),
+             "6bit": bytes(range(40, 100)), "ragged": bytes(range(40, 100)),
+             "7bit": bytes(range(33, 127)),
              "plain": bytes(range(33, 127)), "qn": bytes(range(33, 127))}[kind]
     lens = (np.full(n, L) if kind == "2u" else rng.integers(1, L + 1, n))
     buf, seq_starts, q_starts = bytearray(), [], []
@@ -358,7 +359,9 @@ kind = sys.argv[2]
 fn = {"2u": native.pack_bitwire2u, "2c": native.pack_bitwire2c,
       "2q": native.pack_bitwire2q, "6bit": native.pack_bitwire6,
       "7bit": native.pack_bitwire, "plain": native.pack_rows,
-      "qn": native.pack_qnwire}[kind]
+      "qn": native.pack_qnwire,
+      "ragged": lambda b, s, q, lens, L, nrows, num_threads:
+          native.pack_ragged6(b, s, q, lens, num_threads=num_threads)}[kind]
 args = reads(kind) + (L, n + 700)
 one = fn(*args, num_threads=1)
 assert lib.hpgq_team_short() == 0
@@ -375,7 +378,7 @@ np.savez(sys.argv[3], short=short, **out)
 
 
 @pytest.mark.parametrize("kind", ["2u", "2c", "2q", "6bit", "7bit", "plain",
-                                  "qn"])
+                                  "qn", "ragged"])
 def test_packer_short_team(tmp_path, kind):
     """Asked for 8 threads where the runtime grants 2, every native packer
     gives its 1-thread buffers and exception list, byte for byte, and counts
@@ -470,3 +473,93 @@ def test_pack_2u_matches_numpy(tmp_path, length):
                 g, r = np.asarray(g), np.asarray(r)
                 assert g.dtype == r.dtype and g.shape == r.shape
                 assert g.tobytes() == r.tobytes()
+
+
+# (lengths, bases, quality values) of the reads of each ragged-wire case
+_RAGGED = {
+    "1": ([1], b"ACGT", range(0, 41)),
+    "7": ([7], b"ACGT", range(0, 41)),
+    "8": ([8], b"ACGT", range(0, 41)),
+    "9": ([9], b"ACGT", range(0, 41)),
+    "1001": ([1001], b"ACGT", range(0, 41)),
+    "126106": ([126106], b"ACGT" * 60 + b"N", range(0, 41)),
+    "mixed lengths": ([40, 0, 4099, 33, 126106 // 8, 1, 96, 515, 8, 7],
+                      b"ACGT" * 30 + b"N", range(2, 60)),
+    "N and lowercase": ([5000, 999, 64, 31], b"ACGT" * 40 + b"Nacgtn",
+                        range(0, 41)),
+    "N and lowercase, strict": ([5000, 999, 64, 31], b"ACGT" * 40 + b"Nacgtn",
+                                range(0, 41)),
+    "other bytes": ([3000, 77], bytes(range(33, 127)) + b"ACGT" * 300,
+                    range(0, 41)),
+    "range 63": ([700, 300], b"ACGT", range(30, 94)),
+    "range 64": ([700, 300], b"ACGT", range(30, 95)),
+}
+
+
+def _ragged_block(tmp_path, case):
+    """A RecordBlock of the case's reads, each a stretch of 32 bases from
+    one of the case's bases (so the vector path sees whole steps of ACGT
+    and steps with others) and qualities drawn from its range, both ends
+    of the range in every read of 2 bases or more."""
+    lens, bases, qrange = _RAGGED[case]
+    rng = np.random.default_rng(len(case))
+    alphabet = np.frombuffer(bases, np.uint8)
+    qv = np.array(list(qrange))
+    path = tmp_path / "ragged.fq"
+    with open(path, "wb") as f:
+        for i, n in enumerate(lens):
+            fast = rng.random(-(-n // 32)) < 0.5
+            seq = np.where(np.repeat(fast, 32)[:n],
+                           rng.choice(np.frombuffer(b"ACGT", np.uint8), n),
+                           rng.choice(alphabet, n))
+            q = rng.choice(qv, n)
+            if n >= 2:
+                q[rng.choice(n, 2, replace=False)] = qv[[0, -1]]
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, seq.astype(np.uint8).tobytes(),
+                                             (q + 33).astype(np.uint8).tobytes()))
+    with FastqReader(str(path), batch_size=64) as rd:
+        return next(iter(rd))
+
+
+@pytest.mark.parametrize("simd", [True, False], ids=["avx2", "groups"])
+@pytest.mark.parametrize("case", sorted(_RAGGED))
+def test_pack_ragged6_matches_numpy(tmp_path, monkeypatch, case, simd):
+    """The native ragged 6-bit wire (its vector path where the CPU has
+    AVX2, and its path by whole groups) equals the numpy reference's
+    bytes, table and rows, on reads of 1, 7, 8, 9 and up to 126,106
+    bases, with N, lowercase under either case rule, and bytes that are no
+    base; both give None on a read whose qualities span 64 values; and the
+    twin decode gives back ``pack_block``'s rows, longest first."""
+    import torch
+
+    from hpgq_torch.constants import BASE_OTHER
+    from hpgq_torch.io import packer
+    from hpgq_torch.io.fastq import RecordBlock
+    from hpgq_torch.io.packer import BASE_LUT, wire_ragged6_np
+    from hpgq_torch.kernels.wire_torch import wire_unragged
+
+    block = _ragged_block(tmp_path, case)
+    lut = BASE_LUT.copy()
+    if case.endswith("strict"):  # as HPGQ_STRICT_CASE=1 makes it
+        lut[np.frombuffer(b"acgtn", np.uint8)] = BASE_OTHER
+    order = np.argsort(-block.seq_lens, kind="stable")
+    args = (block.arr, block.starts[order, 1], block.starts[order, 3],
+            block.seq_lens[order])
+    got = native.pack_ragged6(*args, lut=lut, simd=simd)
+    want = wire_ragged6_np(*args, lut=lut)
+    if case == "range 64":
+        assert got is None and want is None
+        return
+    assert got is not None and want is not None
+    np.testing.assert_array_equal(got, want)
+    R, L = block.num_reads, int(block.seq_lens.max())
+    codes, quals, lens, valid = (t.numpy() for t in wire_unragged(
+        torch.from_numpy(got), R, L))
+    sorted_block = RecordBlock(block.buf, block.starts[order],
+                               block.ends[order], block.base_offset)
+    monkeypatch.setattr(packer, "BASE_LUT", lut)
+    w_codes, w_quals, w_lens, _ = pack_block(sorted_block, max_len=L)
+    np.testing.assert_array_equal(codes, w_codes)
+    np.testing.assert_array_equal(quals, w_quals)
+    np.testing.assert_array_equal(lens, w_lens)
+    assert valid.all()

@@ -599,9 +599,10 @@ def test_cli_kmers_output_identical_to_hpgq(tmp_path, monkeypatch, corpus,
 
 def test_long_read_block_packs_few_rows(tmp_path):
     """A block of 40 reads of 5-12 kb (the K2 path) packs to at most 64
-    rows, not to a 16,384-row bucket, as its length classes (5-8 kb and
-    8-12 kb), each at its own width; the counters still equal ``hpgq``'s
-    and the oracle's."""
+    rows, not to a 16,384-row bucket: on the bitpack wire as one ragged
+    wire of a row a read, each at its own length, and on the plain wire
+    as its length classes (5-8 kb and 8-12 kb), each at its own width;
+    the counters still equal ``hpgq``'s and the oracle's."""
     import hpgq
 
     path = str(tmp_path / "long.fq")
@@ -610,10 +611,11 @@ def test_long_read_block_packs_few_rows(tmp_path):
     with FastqReader(path, batch_size=10000) as rd:
         blocks = list(rd)
     assert len(blocks) == 1
-    tag, *parts = sess.pack(blocks[0])[0]
-    assert tag == "parts" and len(parts) == 2
-    bufs = [p[0][0] if isinstance(p[0], tuple) else p[0] for p in parts]
-    assert sum(b.shape[0] for b in bufs) <= 64
+    tag, buf, rows, L = sess.pack(blocks[0])[0]
+    assert tag == "ragged" and rows == 40 <= 64
+    assert L == blocks[0].max_len()
+    # 9 bits a base, with the table and each read's last group
+    assert buf.nbytes < 1.2 * int(blocks[0].seq_lens.sum())
     tag, *parts = StatsSession(33, batch_reads=10240, device="cpu",
                                wire="off").pack(blocks[0])[0]
     lens = np.sort(blocks[0].seq_lens)[::-1]
